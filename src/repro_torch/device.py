@@ -1,0 +1,21 @@
+"""Device selection shared by the port's entry points.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; asking for
+the card on a machine without one raises instead of quietly running on the
+CPU.  Tests pass ``device="cpu"`` explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: torch.device | str = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}; want 'cuda' or 'cpu'")
+    return dev

@@ -52,6 +52,11 @@ def pytest_configure(config):
         "slow: heavy test excluded from the tier-1 fast lane "
         "(enable with --runslow or RUN_SLOW=1)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and the CUDA toolkit; skips where "
+        "torch.cuda.is_available() is False",
+    )
 
 
 def run_slow_enabled(value: str | None) -> bool:
