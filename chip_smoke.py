@@ -6,17 +6,34 @@
 Phases (each raises on failure, so any failure exits non-zero):
   1. environment  card name and power limit, versions, TF32 off, and the
                   build of every CUDA kernel from the sources in this checkout
+                  (one nvcc per source, all started together)
   2. kernels      int8_matmul against its plain version on the card at the
                   shapes of tests/test_kernels.py and at every GEMM shape one
                   forward of full-width ResNet-50 and SqueezeNet issues at
                   224², batch 1 and 8: bitwise equality, and kernel / plain /
                   library (torch._int_mm + epilogue) / bound times
-  3. serve_full   full-width ResNet-50 and SqueezeNet (random weights from a
+  3. flash        flash_attention against its plain version on the card at
+                  the shapes of tests/test_kernels.py, ragged 17·n+3 sizes and
+                  ViT-S/16's shape (batch 1 and 8): the reference's
+                  tolerances, and kernel / plain / library (SDPA) / bound times
+  4. serve_full   full-width ResNet-50 and SqueezeNet (random weights from a
                   seed) behind VideoServer + OnlineController(max_accuracy) +
                   EdgeBatchServer over 60 frames at 224²
-  4. serving      Session(spec, device="cuda").run_serving() on the default
-                  spec of ``python -m repro_torch.launch.serve --frames 64``
-  5. report       {"kernels": [...]} line, then the contract's last line
+  5. vit_full     full-width ViT-S/16 and SqueezeNet the same way: 12 flash
+                  launches per ViT forward, logits against the same forward
+                  with the plain attention
+  6. serving      Session(spec, device="cuda").run_serving() on the default
+                  spec of ``python -m repro_torch.launch.serve --frames 64``,
+                  then on the same spec with models ({"name": "vit-s16"},
+                  "squeezenet")
+  7. main shapes  each kernel against its plain version, untimed, at every
+                  shape phases 4-6 gave it that phases 2-3 did not check
+                  (the serving buckets, the front door's smoke models)
+  8. report       {"kernels": [...]} line, then the contract's last line
+
+Every main-path phase (serve_full, vit_full, serving) sets both kernels'
+launch counts to 0 just before it runs and reads them just after; while
+they run, every shape each kernel's wrapper is called at is recorded.
 
 It needs one NVIDIA card and the CUDA toolkit (nvcc), and exits non-zero
 without printing a result where ``torch.cuda.is_available()`` is False or
@@ -24,11 +41,15 @@ where the port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -37,8 +58,32 @@ RES = 224  # frame and model input size of the full-width phases
 N_CLASSES = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/npu_matmul/csrc/int8_matmul.cu"
 KERNEL_REPLACES = "src/repro/kernels/npu_matmul/kernel.py:74"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:118"
+VIT = "vit-s16"
+VIT_SHAPE = (197, 197, 6, 6, 64, False, "bfloat16")  # S, T, H, KH, hd, causal, dtype at 224², patch 16
+SMOKE_VIT_SHAPE = (17, 17, 4, 4, 16, False, "bfloat16")  # the smoke ViT (32², patch 8) the front door calibrates
+FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.py checks the same list
+    # tests/test_kernels.py:140-144 (f32) and :157-168 (bf16)
+    (2, 128, 128, 8, 4, 64, True, "float32"), (1, 100, 200, 4, 4, 32, False, "float32"),
+    (2, 257, 257, 8, 2, 64, True, "float32"), (1, 64, 512, 16, 8, 128, True, "float32"),
+    (1, 33, 65, 2, 1, 16, False, "float32"), (2, 128, 128, 8, 4, 64, True, "bfloat16"),
+    # ragged S = T = 17·n + 3 (tests/test_kernels.py:184-194)
+    (1, 20, 20, 4, 2, 32, True, "float32"), (2, 54, 54, 4, 2, 32, False, "float32"),
+    (3, 88, 88, 4, 2, 32, True, "float32"), (4, 37, 37, 4, 2, 32, False, "float32"),
+    # causal with S > T: the first S - T query rows see no key
+    (1, 40, 20, 4, 2, 32, True, "float32"),
+    # the smoke ViT at the batches the front door times (1, 2) and scores (64)
+    (1, *SMOKE_VIT_SHAPE), (2, *SMOKE_VIT_SHAPE), (64, *SMOKE_VIT_SHAPE),
+    # ViT-S/16 at 224², batch 1 and 8 (the main path's shape)
+    (1, *VIT_SHAPE), (8, *VIT_SHAPE),
+]
+FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (0.05, 0.02)}  # (rtol, atol): tests/test_kernels.py's
+VIT_LOGIT_RTOL = 0.02  # max|kernel - plain attention| over max|logit| of the full-width ViT forward
 GEMMS_PER_FORWARD = {"resnet-50": 54, "squeezenet": 26}  # 53 convs + head; 25 convs + classifier conv
 TEST_SHAPES = [  # tests/test_kernels.py:27, :56-58, :78
     (128, 512, 128), (256, 1024, 384), (64, 300, 100), (8, 128, 128), (1, 64, 1),
@@ -55,12 +100,59 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def own_fan_in(params, cfg):
+    """Give a ViT's stacked attention matrices their own fan-in, in place, and
+    return ``params``.  The reference's init rule reads the fan-in of
+    ``wq [L, d, H, hd]`` as H (``shape[-2]``), so its random q and k come out
+    ~sqrt(d / H) = 8x too large, the logits spread ~64 and the softmax is
+    near one-hot: one bf16 ulp in a rounded logit then flips which token a
+    head attends to, and a few blocks of that make two correct bf16
+    forwards that sum in different orders disagree by more than the logits'
+    scale.  Scaling wq/wk/wv by sqrt(H / d) and wo by 1 / sqrt(H) gives each
+    its true fan-in (d, and H·hd).  Works on torch and numpy leaves alike."""
+    attn = params["blocks"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name] = attn[name] * math.sqrt(cfg.n_heads / cfg.d_model)
+    attn["wo"] = attn["wo"] / math.sqrt(cfg.n_heads)
+    return params
+
+
+@contextlib.contextmanager
+def recording(module, name: str, key, seen: set):
+    """While active, ``module.name`` is a recorder that adds ``key(*args,
+    **kwargs)`` of every call to ``seen`` and then calls the wrapper.  The
+    wrapper counts its launches on whatever ``module.name`` is, so the count
+    moves to the recorder and back with it."""
+    real = getattr(module, name)
+
+    def recorder(*args, **kwargs):
+        seen.add(key(*args, **kwargs))
+        return real(*args, **kwargs)
+
+    recorder.launches = real.launches
+    setattr(module, name, recorder)
+    try:
+        yield
+    finally:
+        real.launches = recorder.launches
+        setattr(module, name, real)
+
+
+def gemm_key(x_q, w_q, *_args) -> tuple[int, int, int]:
+    return x_q.shape[0], x_q.shape[1], w_q.shape[1]
+
+
+def flash_key(q, k, v, *, causal) -> tuple:
+    B, S, H, hd = q.shape
+    return B, S, k.shape[1], H, k.shape[2], hd, causal, str(q.dtype).removeprefix("torch.")
+
+
 # ---------------------------------------------------------------------------
 # 1. environment
 # ---------------------------------------------------------------------------
 
 
-def phase_environment(torch, build, ops) -> None:
+def phase_environment(torch, build, sources) -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -71,12 +163,12 @@ def phase_environment(torch, build, ops) -> None:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    logs = build.build_libraries([ops.SOURCE])
+    logs = build.build_libraries(sources)
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"nvcc[{name}]: {line}")
-    log(f"kernel build: {build_s:.2f} s ({len(logs)} source(s) compiled)")
+    log(f"kernel build: {build_s:.2f} s ({len(logs)} source(s) compiled in parallel)")
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +240,7 @@ def record_gemms(torch, A, configs, common, name: str, batch: int) -> list[tuple
     return shapes
 
 
-def compare_shape(torch, ops, ref, M: int, K: int, N: int) -> dict:
+def compare_shape(torch, ops, ref, M: int, K: int, N: int, *, timed: bool = True) -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(M * 7919 + K * 31 + N)
     x = torch.randn(M, K, device=DEVICE, generator=g)
     w = torch.randn(K, N, device=DEVICE, generator=g)
@@ -159,6 +251,8 @@ def compare_shape(torch, ops, ref, M: int, K: int, N: int) -> dict:
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     equal = bool(torch.equal(out, plain))
+    if not timed:
+        return {"equal": equal, "max_abs_err": err}
     kernel = lambda: ops.int8_matmul(xq, wq, xs, ws)  # noqa: E731
     plain_fn = lambda: ref.int8_matmul_ref(xq, wq, xs, ws)  # noqa: E731
     # Library yardstick: cuBLAS int8 GEMM + the same epilogue.  cuBLASLt's
@@ -191,9 +285,9 @@ def compare_shape(torch, ops, ref, M: int, K: int, N: int) -> dict:
     }
 
 
-def phase_kernels(torch, A, configs, common, ops, ref) -> tuple[dict, float]:
-    """Returns the per-frame sums over the batch-1 GEMMs and the largest
-    kernel-vs-plain difference seen."""
+def phase_kernels(torch, A, configs, common, ops, ref) -> tuple[dict, dict]:
+    """Returns the per-frame sums over the batch-1 GEMMs and the rows by
+    shape."""
     calls = {(name, b): record_gemms(torch, A, configs, common, name, b)
              for name in GEMMS_PER_FORWARD for b in (1, 8)}
     for (name, b), shapes in calls.items():
@@ -228,19 +322,95 @@ def phase_kernels(torch, A, configs, common, ops, ref) -> tuple[dict, float]:
                 agg[key] += v
         log(f"per-frame GEMMs {name} (batch 1, {GEMMS_PER_FORWARD[name]} calls): "
             + "  ".join(f"{k}={v:.4f}" for k, v in per_model.items()))
-    return agg, max(r["max_abs_err"] for r in rows.values())
+    return agg, rows
 
 
 # ---------------------------------------------------------------------------
-# 3. serve_full: full-width models behind the controller
+# 3. flash attention vs plain
 # ---------------------------------------------------------------------------
 
 
-def choose_bandwidth(core, n_frames: int) -> float:
+def flash_bound(B, S, T, H, KH, hd, causal, dtype) -> tuple[float, float]:
+    """(bytes-bound ms, operations-bound ms): q, k, v read once and the
+    output written once; 4·hd operations (two multiply-adds) per visible
+    (query, key) pair of every head — causal counts only the pairs this mask
+    leaves, ``t <= s + T - S``."""
+    es = 4 if dtype == "float32" else 2
+    nbytes = es * (2 * B * S * H * hd + 2 * B * T * KH * hd)
+    pairs = sum(min(T, max(0, s + T - S + 1)) for s in range(S)) if causal else S * T
+    peak = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * B * H * hd * pairs / peak * 1e3
+
+
+def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True) -> dict:
+    import torch.nn.functional as F
+
+    B, S, T, H, KH, hd, causal, dt = shape
+    g = torch.Generator(device=DEVICE).manual_seed(B * 7919 + S * 31 + T + hd)
+    q, k, v = (torch.randn(B, n, h, hd, device=DEVICE, generator=g).to(getattr(torch, dt))
+               for n, h in ((S, H), (T, KH), (T, KH)))
+    out = flash_ops.flash_attention(q, k, v, causal=causal)
+    # the plain version on the f32-upcast inputs (the reference's bf16 test)
+    plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[dt]
+    diff = (out.float() - plain).abs()
+    ok = bool((diff <= atol + rtol * plain.abs()).all())
+    if not timed:
+        return {"ok": ok, "max_abs_err": float(diff.max())}
+    kernel = lambda: flash_ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain_fn = lambda: flash_ref.sdpa_ref(q, k, v, causal=causal)  # noqa: E731
+    # Library yardstick: SDPA on [B, H, S, hd] views of the same tensors, the
+    # KV heads repeated to H outside the timed region, the bottom-right causal
+    # mask as a boolean mask where S != T.
+    G = H // KH
+    kl, vl = (t.repeat_interleave(G, dim=2) if G > 1 else t for t in (k, v))
+    mask = torch.ones(S, T, dtype=torch.bool, device=DEVICE).tril(T - S) if causal and S != T else None
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                                              attn_mask=mask, is_causal=causal and S == T).transpose(1, 2)
+
+    b_bytes, b_ops = flash_bound(*shape)
+    return {
+        "ok": ok, "max_abs_err": float(diff.max()),
+        "library_err": float((library().float() - plain).abs().max()),
+        "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain_fn), "library_ms": graph_ms(torch, library),
+        "call_ms": cuda_ms(torch, kernel),
+        "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+    }
+
+
+def phase_flash(torch, flash_ops, flash_ref) -> dict:
+    """Returns the rows by shape."""
+    rows = {}
+    log("flash_attention: device ms per call (CUDA graph); k_call = per eager call (host launch included)")
+    log(f"{'B':>2} {'S':>4} {'T':>4} {'H':>3} {'KH':>3} {'hd':>4} {'causal':>6} {'dtype':>8} {'kernel':>8} "
+        f"{'plain':>8} {'library':>8} {'bound':>9} {'by':>5} {'k_call':>7} {'max_err':>9} {'lib_err':>9} ok")
+    for shape in FLASH_SHAPES:
+        r = compare_flash(torch, flash_ops, flash_ref, shape)
+        rows[shape] = r
+        B, S, T, H, KH, hd, causal, dt = shape
+        log(f"{B:>2} {S:>4} {T:>4} {H:>3} {KH:>3} {hd:>4} {str(causal):>6} {dt:>8} {r['ms']:>8.4f} "
+            f"{r['plain_ms']:>8.4f} {r['library_ms']:>8.4f} {r['bound_ms']:>9.6f} {r['bound_by'][:5]:>5} "
+            f"{r['call_ms']:>7.4f} {r['max_abs_err']:>9.2e} {r['library_err']:>9.2e} {r['ok']}")
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    check(not bad, f"flash kernel outside tolerance of its plain version at {bad}")
+    log(f"flash: {len(rows)} shapes within tolerance of the plain version on f32-upcast inputs "
+        f"(f32 rtol/atol {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 4. serve_full: full-width models behind the controller
+# ---------------------------------------------------------------------------
+
+
+def choose_bandwidth(core, models, n_frames: int) -> float:
     """The first constant bandwidth, from the paper's 2.5 Mbps up, at which
-    max_accuracy over PAPER_MODELS plans both NPU and edge frames."""
+    max_accuracy over ``models`` plans both NPU and edge frames."""
     for mbps in (2.5, 3.0, 4.0, 5.0):
-        c = core.OnlineController(models=core.PAPER_MODELS, stream=core.StreamSpec(), policy="max_accuracy",
+        c = core.OnlineController(models=models, stream=core.StreamSpec(), policy="max_accuracy",
                                   estimator=core.BandwidthEstimator(init_bps=mbps * 1e6))
         c.estimator.observe_rtt(0.1)
         head, where = 0, {"npu": 0, "server": 0}
@@ -250,14 +420,39 @@ def choose_bandwidth(core, n_frames: int) -> float:
                 if head + d.frame < n_frames and d.is_processed():
                     where[d.where.value] += 1
             head += max(plan.horizon, 1)
-        log(f"serve_full: planned mix at {mbps} Mbps: {where}")
+        log(f"planned mix of {[m.name for m in models]} at {mbps} Mbps: {where}")
         if where["npu"] and where["server"]:
             return mbps
     raise RuntimeError("no bandwidth in 2.5-5 Mbps mixes NPU and edge frames")
 
 
-def phase_serve_full(torch, A, configs, common, quant, ops, ref, core, serving) -> int:
-    """Returns the kernel launches of the 60-frame serving run."""
+def serve_frames(torch, core, serving, ops, flash_ops, models, npu_fns, edge_fns, frames, labels, mbps):
+    """60 frames through VideoServer + OnlineController(max_accuracy) +
+    EdgeBatchServer at a constant ``mbps``, the j-th profile of ``models``
+    served by ``npu_fns[j]`` / ``edge_fns[j]``.  Both kernels' launch counts
+    are set to 0 just before the run; returns (server, summary, int8
+    launches, flash launches)."""
+    stream = core.StreamSpec()
+    npu_eps = {j: serving.ModelEndpoint(f"{m.name}-npu", npu_fns[j], profile_latency_s=m.t_npu, device=DEVICE)
+               for j, m in enumerate(models)}
+    batched = {j: serving.BatchedEndpoint(f"{m.name}-edge", edge_fns[j], max_batch=16, device=DEVICE)
+               for j, m in enumerate(models)}
+    for ep in batched.values():
+        ep.warmup(frames[0])
+    controller = core.OnlineController(models=models, stream=stream, policy="max_accuracy",
+                                       estimator=core.BandwidthEstimator(init_bps=mbps * 1e6))
+    controller.estimator.observe_rtt(0.1)
+    server = serving.VideoServer(controller=controller, npu_endpoints=npu_eps, stream=stream,
+                                 trace=core.Trace.constant(mbps), edge_server=serving.EdgeBatchServer(batched),
+                                 device=DEVICE)
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+    summary = server.run(frames, labels)
+    torch.cuda.synchronize()
+    return server, summary, ops.int8_matmul.launches, flash_ops.flash_attention.launches
+
+
+def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving) -> int:
+    """Returns the int8 kernel launches of the 60-frame serving run."""
     n_frames = 60
     models = {}
     for name in GEMMS_PER_FORWARD:
@@ -265,7 +460,7 @@ def phase_serve_full(torch, A, configs, common, quant, ops, ref, core, serving) 
         specs, state_specs = A.abstract_params(arch)
         params = common.init_tree(torch.Generator().manual_seed(SEED), specs, device=DEVICE)
         state = common.init_tree(torch.Generator().manual_seed(SEED + 1), state_specs, device=DEVICE)
-        qparams, qstats = quant.npu_variant(params)
+        qparams, qstats = quant.npu_variant(params, specs)
 
         def forward(p, x, _arch=arch, _state=state):
             return A.classifier_forward(_arch, p, _state, x, train=False)[0]
@@ -309,31 +504,13 @@ def phase_serve_full(torch, A, configs, common, quant, ops, ref, core, serving) 
                 ms = sorted(ts)[len(ts) // 2] * 1e3
                 log(f"serve_full: {name} {variant} batch {b}: {ms:.3f} ms per forward, {ms / b:.3f} ms per frame")
 
-    mbps = choose_bandwidth(core, n_frames)
-    stream = core.StreamSpec()
-    names = list(GEMMS_PER_FORWARD)
-    npu_eps = {
-        j: serving.ModelEndpoint(f"{n}-npu", lambda x, m=models[n]: quant.npu_forward(m[0])(m[2], x),
-                                 profile_latency_s=core.PAPER_MODELS[j].t_npu, device=DEVICE)
-        for j, n in enumerate(names)
-    }
-    batched = {
-        j: serving.BatchedEndpoint(f"{n}-edge", lambda x, m=models[n]: m[0](m[1], x),
-                                   max_batch=16, device=DEVICE)
-        for j, n in enumerate(names)
-    }
-    for ep in batched.values():
-        ep.warmup(frames[0])
-    controller = core.OnlineController(models=core.PAPER_MODELS, stream=stream, policy="max_accuracy",
-                                       estimator=core.BandwidthEstimator(init_bps=mbps * 1e6))
-    controller.estimator.observe_rtt(0.1)
-    server = serving.VideoServer(controller=controller, npu_endpoints=npu_eps, stream=stream,
-                                 trace=core.Trace.constant(mbps), edge_server=serving.EdgeBatchServer(batched),
-                                 device=DEVICE)
-    ops.int8_matmul.launches = 0
-    summary = server.run(frames, labels)
-    torch.cuda.synchronize()
-    launches = ops.int8_matmul.launches
+    mbps = choose_bandwidth(core, core.PAPER_MODELS, n_frames)
+    names = [m.name for m in core.PAPER_MODELS]
+    server, summary, launches, flash = serve_frames(
+        torch, core, serving, ops, flash_ops, core.PAPER_MODELS,
+        [lambda x, m=models[n]: quant.npu_forward(m[0])(m[2], x) for n in names],
+        [lambda x, m=models[n]: m[0](m[1], x) for n in names], frames, labels, mbps)
+    check(flash == 0, f"the convnets launched the flash kernel {flash} times")
     npu_by_model = {n: sum(r.where == "npu" and r.model == n for r in server.results) for n in names}
     expected = sum(GEMMS_PER_FORWARD[n] * k for n, k in npu_by_model.items())
     log(f"serve_full: {mbps} Mbps summary {json.dumps({k: v for k, v in summary.items() if k != 'policy_spec'})}")
@@ -345,33 +522,176 @@ def phase_serve_full(torch, A, configs, common, quant, ops, ref, core, serving) 
 
 
 # ---------------------------------------------------------------------------
-# 4. serving: the front door, calibration through the kernel
+# 5. vit_full: full-width ViT-S/16 behind the controller
 # ---------------------------------------------------------------------------
 
 
-def phase_serving(torch, ops, serve, session) -> int:
-    """Returns the kernel launches of ``Session.run_serving``."""
+def vit_weights(torch, A, common, arch):
+    """Random full-width ViT weights from the seed, the attention matrices at
+    their own fan-in (``own_fan_in``)."""
+    specs, _ = A.abstract_params(arch)
+    params = common.init_tree(torch.Generator().manual_seed(SEED), specs, device=DEVICE)
+    return specs, own_fan_in(params, arch.cfg)
+
+
+def phase_vit_full(torch, A, configs, common, quant, ops, flash_ops, flash_ref, core, serving, median_s):
+    """Returns (int8 launches, flash launches) of the 60-frame serving run."""
+    n_frames = 60
+    arch = configs.get(VIT)
+    n_layers = arch.cfg.n_layers
+    specs, params = vit_weights(torch, A, common, arch)
+    qparams, qstats = quant.npu_variant(params, specs)
+
+    def vit_forward(p, x):
+        return A.classifier_forward(arch, p, {}, x, train=False)[0]
+
+    log(f"vit_full: {VIT} {A.n_params(arch)} params (seed {SEED}, attention matrices at their own fan-in), "
+        f"quantized leaves {qstats.leaves_quantized}, mean rel err {qstats.mean_rel_err:.5f}")
+
+    frames, labels = serving.make_synthetic_video(n_frames, res=RES, seed=SEED)
+    vit_npu = quant.npu_forward(vit_forward)
+
+    def plain_attention(q, k, v, *, causal=True, **_):
+        return flash_ref.sdpa_ref(q, k, v, causal=causal)
+
+    for b in (1, 8):
+        x = torch.as_tensor(frames[:b], device=DEVICE)
+        for variant, fwd, p in (("edge", vit_forward, params), ("npu", vit_npu, qparams)):
+            flash_ops.flash_attention.launches = 0
+            with torch.no_grad():
+                kern = fwd(p, x)
+            torch.cuda.synchronize()
+            launches = flash_ops.flash_attention.launches
+            check(launches == n_layers,
+                  f"{VIT} {variant} forward at batch {b} launched the flash kernel {launches} times, want {n_layers}")
+            with mock.patch.object(flash_ops, "attention", plain_attention), torch.no_grad():
+                plain = fwd(p, x)
+            check(bool(torch.isfinite(kern).all()) and kern.shape == (b, N_CLASSES), f"{VIT} logits malformed")
+            err, scale = float((kern - plain).abs().max()), float(plain.abs().max())
+            top = torch.topk(plain, 2, dim=-1).values
+            margin = float((top[:, 0] - top[:, 1]).min())
+            k_top = kern.argmax(-1)
+            same = k_top == plain.argmax(-1)
+            # A frame whose plain logits tie (within the measured difference)
+            # may break the tie the other way; every other frame keeps its top-1.
+            tie = plain.gather(-1, k_top[:, None])[:, 0] >= top[:, 0] - 2 * err
+            log(f"vit_full: {variant} batch {b}: {launches} flash launches; logits vs plain attention: max|d| "
+                f"{err:.4g} = {err / scale:.4%} of max|logit| {scale:.4g} (tolerance {VIT_LOGIT_RTOL:.0%}), "
+                f"top-1 equal on {int(same.sum())}/{b} frames, ties broken otherwise {int((~same & tie).sum())} "
+                f"(smallest top-2 margin {margin:.4g})")
+            check(err <= VIT_LOGIT_RTOL * scale and bool((same | tie).all()),
+                  f"{VIT} {variant} batch {b}: kernel forward differs from the plain-attention forward")
+
+    # Per-frame times of both variants at batch 1 and 8 (host clock, synced),
+    # the batch-1 medians being the profile's t_npu / t_server.
+    t_ms = {}
+    for b in (1, 8):
+        x = torch.as_tensor(frames[:b], device=DEVICE)
+        for variant, call in (("npu", lambda: vit_npu(qparams, x).cpu()),
+                              ("edge", lambda: vit_forward(params, x).cpu())):
+            with torch.no_grad():
+                ms = median_s(call, warmup=2, repeats=7) * 1e3
+            t_ms[(variant, b)] = ms
+            log(f"vit_full: {VIT} {variant} batch {b}: {ms:.3f} ms per forward, {ms / b:.3f} ms per frame")
+    vit_profile = core.profile_ms(VIT, t_npu_ms=t_ms[("npu", 1)], t_server_ms=t_ms[("edge", 1)],
+                                  acc_server=core.RESNET50.acc_server, acc_npu=core.RESNET50.acc_npu)
+    log(f"vit_full: {VIT} profile t_npu {t_ms[('npu', 1)]:.3f} ms, t_server {t_ms[('edge', 1)]:.3f} ms (measured "
+        "above); accuracy tables are core.profiles.RESNET50's, since random weights have no accuracy of their own")
+
+    sq = configs.get("squeezenet")
+    sq_specs, sq_state_specs = A.abstract_params(sq)
+    sq_params = common.init_tree(torch.Generator().manual_seed(SEED), sq_specs, device=DEVICE)
+    sq_state = common.init_tree(torch.Generator().manual_seed(SEED + 1), sq_state_specs, device=DEVICE)
+    sq_qparams, _ = quant.npu_variant(sq_params, sq_specs)
+
+    def sq_forward(p, x):
+        return A.classifier_forward(sq, p, sq_state, x, train=False)[0]
+
+    sq_npu = quant.npu_forward(sq_forward)
+    models = (vit_profile, core.SQUEEZENET)
+    mbps = choose_bandwidth(core, models, n_frames)
+    server, summary, int8, flash = serve_frames(
+        torch, core, serving, ops, flash_ops, models,
+        [lambda x: vit_npu(qparams, x), lambda x: sq_npu(sq_qparams, x)],
+        [lambda x: vit_forward(params, x), lambda x: sq_forward(sq_params, x)],
+        frames, labels, mbps)
+    # forwards the run issued: one per NPU endpoint call, one per edge flush
+    calls = {"vit": server.npu[0].stats.calls + server.edge_server.endpoints[0].stats.flushes,
+             "squeezenet-npu": server.npu[1].stats.calls}
+    log(f"vit_full: {mbps} Mbps summary {json.dumps({k: v for k, v in summary.items() if k != 'policy_spec'})}")
+    log(f"vit_full: forwards {calls}; flash launches {flash} (expected {n_layers * calls['vit']}), "
+        f"int8 launches {int8} (expected {GEMMS_PER_FORWARD['squeezenet'] * calls['squeezenet-npu']})")
+    check(summary["frames"] == n_frames, f"answered {summary['frames']} of {n_frames} frames")
+    check(flash == n_layers * calls["vit"] and flash > 0, f"flash launches {flash} != {n_layers} x {calls['vit']}")
+    check(int8 == GEMMS_PER_FORWARD["squeezenet"] * calls["squeezenet-npu"], f"int8 launches {int8}")
+    return int8, flash
+
+
+# ---------------------------------------------------------------------------
+# 6. serving: the front door, calibration through the kernels
+# ---------------------------------------------------------------------------
+
+
+# The kernel each model's calibration must be timed through.
+KERNEL_OF = {"resnet-50": "int8_matmul", "squeezenet": "int8_matmul", VIT: "flash_attention"}
+
+
+def run_front_door(torch, ops, flash_ops, serve, session, models=None) -> tuple[int, int]:
+    """One ``Session.run_serving`` over 64 frames; returns its (int8, flash)
+    launches."""
     spec, device = serve.build_spec(["--frames", "64"])
     check(device == DEVICE, f"launch.serve defaults to device {device!r}")
-    ops.int8_matmul.launches = 0
+    if models is not None:
+        spec = dataclasses.replace(spec, models=models)
+    names = [m.name for m in spec.models]
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
     report = session.Session(spec, device=device).run_serving()
     torch.cuda.synchronize()
-    launches = ops.int8_matmul.launches
+    int8, flash = ops.int8_matmul.launches, flash_ops.flash_attention.launches
     meta = report.meta
-    log(f"serving: summary {json.dumps({k: v for k, v in meta.items() if k not in ('calibration', 'policy_spec')})}")
+    log(f"serving {names}: summary "
+        f"{json.dumps({k: v for k, v in meta.items() if k not in ('calibration', 'policy_spec')})}")
     for m in meta["calibration"]["models"]:
         prov = m["provenance"]
         log(f"serving: calibrated {m['name']}: t_npu {m['t_npu_ms']:.3f} ms t_server {m['t_server_ms']:.3f} ms "
             f"by batch npu {prov['t_npu_ms_by_batch']} edge {prov['t_server_ms_by_batch']} "
-            f"kernel launches while timing {prov['kernel_launches_timed']} kernel {prov['kernel']!r}")
-        check(prov["backend"] == "cuda" and prov["kernel"].endswith("int8_matmul.cu (cuda)"),
-              f"provenance does not name the CUDA kernel: {prov}")
-        check(prov["kernel_launches_timed"] > 0, f"{m['name']}: t_npu was not timed through the kernel")
-    log(f"serving: kernel launches {launches}")
+            f"launches while timing {prov['kernel_launches_timed']}; kernel {prov['kernel']!r}")
+        want = KERNEL_OF[m["name"]]
+        check(prov["backend"] == "cuda" and prov["kernel"].endswith("(cuda)") and f"{want}.cu" in prov["kernel"]
+              and prov["kernel_launches_timed"][want] > 0,
+              f"{m['name']}: calibration was not timed through the {want} kernel: {prov}")
+    log(f"serving {names}: int8 launches {int8}, flash launches {flash}")
     check(meta["frames"] == 64, f"answered {meta['frames']} of 64 frames")
     check("deadline_met_frac" in meta, "summary lacks deadline_met_frac")
-    check(launches > 0, "serving never launched the kernel")
-    return launches
+    return int8, flash
+
+
+def phase_serving(torch, ops, flash_ops, serve, session) -> tuple[int, int]:
+    """The default pair, then ViT-S/16 with SqueezeNet; returns the (int8,
+    flash) launches of both runs together."""
+    int8, flash = run_front_door(torch, ops, flash_ops, serve, session)
+    check(int8 > 0 and flash == 0, "the default pair must launch the int8 kernel and not the flash kernel")
+    vit_int8, vit_flash = run_front_door(torch, ops, flash_ops, serve, session, models=({"name": VIT}, "squeezenet"))
+    check(vit_int8 > 0 and vit_flash > 0, "the ViT run must launch both kernels")
+    return int8 + vit_int8, flash + vit_flash
+
+
+# ---------------------------------------------------------------------------
+# 7. main shapes: every shape the main path gave a kernel, checked
+# ---------------------------------------------------------------------------
+
+
+def phase_main_shapes(torch, ops, ref, flash_ops, flash_ref, gemms, attns) -> tuple[dict, dict]:
+    """Each kernel against its plain version, untimed, at the shapes in
+    ``gemms`` / ``attns``; returns the rows by shape of each."""
+    gemm_rows = {s: compare_shape(torch, ops, ref, *s, timed=False) for s in sorted(gemms)}
+    flash_rows = {s: compare_flash(torch, flash_ops, flash_ref, s, timed=False) for s in sorted(attns)}
+    for name, rows, tol in (("int8_matmul", gemm_rows, "exact"), ("flash_attention", flash_rows, FLASH_TOL)):
+        log(f"main shapes: {name} at {len(rows)} more shapes of the main path: {sorted(rows)}; largest |kernel - "
+            f"plain| {max((r['max_abs_err'] for r in rows.values()), default=0.0):.3g} (tolerance {tol})")
+    bad = [s for s, r in gemm_rows.items() if not r["equal"]] + [s for s, r in flash_rows.items() if not r["ok"]]
+    check(not bad, f"kernel and plain version differ at main-path shapes {bad}")
+    return gemm_rows, flash_rows
 
 
 # ---------------------------------------------------------------------------
@@ -390,35 +710,66 @@ def main() -> int:
     from repro_torch import arch as A
     from repro_torch import configs, core, quant, serving, session
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.npu_matmul import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import common
+    from repro_torch.serving.calibrate import _median_s
 
     t0 = time.perf_counter()
-    phase_environment(torch, build, ops)
-    agg, max_abs_err = phase_kernels(torch, A, configs, common, ops, ref)
+    phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE])
+    agg, gemm_rows = phase_kernels(torch, A, configs, common, ops, ref)
+    flash_rows = phase_flash(torch, flash_ops, flash_ref)
     torch.cuda.empty_cache()
-    full_launches = phase_serve_full(torch, A, configs, common, quant, ops, ref, core, serving)
-    torch.cuda.empty_cache()
-    serving_launches = phase_serving(torch, ops, serve, session)
+    gemms, attns = set(), set()
+    with recording(ops, "int8_matmul", gemm_key, gemms), recording(flash_ops, "flash_attention", flash_key, attns):
+        full_launches = phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving)
+        torch.cuda.empty_cache()
+        vit_int8, vit_flash = phase_vit_full(torch, A, configs, common, quant, ops, flash_ops, flash_ref, core,
+                                             serving, _median_s)
+        torch.cuda.empty_cache()
+        serving_int8, serving_flash = phase_serving(torch, ops, flash_ops, serve, session)
+    more_gemms, more_flash = phase_main_shapes(torch, ops, ref, flash_ops, flash_ref,
+                                               gemms - gemm_rows.keys(), attns - flash_rows.keys())
     wall = time.perf_counter() - t0
 
-    main_path_launches = full_launches + serving_launches
-    log(f"kernels: [int8_matmul: {main_path_launches} launches on the main path "
-        f"(serve_full {full_launches}, serving {serving_launches})]")
+    int8_launches = full_launches + vit_int8 + serving_int8
+    flash_launches = vit_flash + serving_flash
+    log(f"kernels: [int8_matmul: {int8_launches} launches on the main path (serve_full {full_launches}, "
+        f"vit_full {vit_int8}, serving {serving_int8}); flash_attention: {flash_launches} launches on the main "
+        f"path (vit_full {vit_flash}, serving {serving_flash})]")
+    # The flash entry is one frame's attention: the 12 calls of a batch-1
+    # ViT-S/16 forward at 224², as the int8 entry sums a frame's GEMMs.
+    n_layers = configs.get(VIT).cfg.n_layers
+    vit1 = flash_rows[(1, *VIT_SHAPE)]
+    log(f"flash per frame ({n_layers} calls at batch 1, (S, T, H, KH, hd, causal, dtype) = {VIT_SHAPE}): "
+        + "  ".join(f"{k}={n_layers * vit1[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms")))
     log(f"chip_smoke: all phases passed in {wall:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "int8_matmul",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": main_path_launches,
-        "max_abs_err": max_abs_err,
+        "launches": int8_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in (*gemm_rows.values(), *more_gemms.values())),
         "ms": agg["ms"],
         "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"],
         "bound_by": "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations",
         "library_ms": agg["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in (*flash_rows.values(), *more_flash.values())),
+        "ms": n_layers * vit1["ms"],
+        "plain_ms": n_layers * vit1["plain_ms"],
+        "bound_ms": n_layers * vit1["bound_ms"],
+        "bound_by": vit1["bound_by"],
+        "library_ms": n_layers * vit1["library_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

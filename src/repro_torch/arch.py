@@ -8,14 +8,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from .models import convnets
+from .models import convnets, vision
 from .models.common import param_count
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str  # resnet | squeezenet
+    family: str  # resnet | squeezenet | vit
     cfg: Any
 
 
@@ -25,7 +25,9 @@ def abstract_params(arch: Arch):
         return convnets.resnet_abstract(arch.cfg)
     if arch.family == "squeezenet":
         return convnets.squeezenet_abstract(arch.cfg)
-    raise ValueError(f"family {arch.family!r} is not ported (have resnet, squeezenet)")
+    if arch.family == "vit":
+        return vision.vit_abstract_params(arch.cfg), {}
+    raise ValueError(f"family {arch.family!r} is not ported (have resnet, squeezenet, vit)")
 
 
 def classifier_forward(arch: Arch, params, state, images, *, train: bool):
@@ -34,6 +36,8 @@ def classifier_forward(arch: Arch, params, state, images, *, train: bool):
         return convnets.resnet_forward(arch.cfg, params, state, images, train=train)
     if arch.family == "squeezenet":
         return convnets.squeezenet_forward(arch.cfg, params, state, images, train=train)
+    if arch.family == "vit":
+        return vision.vit_forward(arch.cfg, params, images), state
     raise ValueError(f"family {arch.family!r} is not a ported classifier family")
 
 

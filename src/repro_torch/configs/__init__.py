@@ -12,6 +12,7 @@ from ..arch import Arch
 _MODULES = {
     "resnet-50": "resnet_50",
     "squeezenet": "squeezenet",
+    "vit-s16": "vit_s16",
 }
 
 ALL = tuple(_MODULES)

@@ -2,9 +2,10 @@
 
 ``from_jax(arch, params, state)`` takes the reference's nested dicts of
 numpy arrays (``jax.tree.map(np.asarray, ...)`` of its params/state) and
-returns the port's trees: conv weights HWIO -> OIHW (stacked blocks
-``[L, KH, KW, I, O]`` -> ``[L, O, I, KH, KW]``, kept stacked), matrices and
-vectors unchanged, BatchNorm state carried over.  Structure and shapes are
+returns the port's trees: conv weights (the leaves whose spec says
+``init="conv"``) HWIO -> OIHW (stacked blocks ``[L, KH, KW, I, O]`` ->
+``[L, O, I, KH, KW]``, kept stacked); every other leaf unchanged, whatever
+its rank (ViT's stacked ``wq [L, d, H, hd]``); BatchNorm state carried over.  Structure and shapes are
 checked against ``arch``'s own specs.  This module imports nothing of the
 reference; it only reads arrays.
 """
@@ -21,10 +22,8 @@ from .device import resolve_device
 
 def _convert(name: str, a: np.ndarray, spec, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.ndim == 4:
-        a = a.transpose(3, 2, 0, 1)
-    elif a.ndim == 5:
-        a = a.transpose(0, 4, 3, 1, 2)
+    if spec.init == "conv":
+        a = a.transpose(*range(a.ndim - 4), a.ndim - 1, a.ndim - 2, a.ndim - 4, a.ndim - 3)
     if tuple(a.shape) != spec.shape:
         raise ValueError(f"{name}: converted shape {a.shape} != expected {spec.shape}")
     return torch.tensor(np.ascontiguousarray(a), dtype=spec.dtype, device=device)

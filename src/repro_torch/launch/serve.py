@@ -1,6 +1,7 @@
 """Serving entry point: stand up NPU (int8 CUDA kernel) + edge (bf16) variants of a
 classifier pair, calibrate measured profiles, and run the FastVA controller
-over a synthetic video.
+over a synthetic video.  A ViT's variants both run their attention in the
+flash CUDA kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --policy max_accuracy \
         --frames 200 --fps 30 --bandwidth 2.0

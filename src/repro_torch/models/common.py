@@ -70,6 +70,17 @@ def tree_leaves(tree: Tree) -> list[Any]:
     return [tree]
 
 
+def stack_specs(specs: Tree, n: int) -> Tree:
+    """Add a leading 'layers' dim of size ``n`` to every spec in the tree
+    (repeated blocks stored stacked, as the reference scans over them)."""
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n, *s.shape), axes=("layers", *s.axes)), specs)
+
+
+def index_tree(tree: Tree, i: int) -> Tree:
+    """Layer ``i`` of a stacked tree."""
+    return tree_map(lambda t: t[i], tree)
+
+
 def init_tree(gen: torch.Generator, specs: Tree, *, device: torch.device | str = "cuda") -> Tree:
     """Materialize a spec tree; leaves draw from ``gen`` in sorted-key order."""
     device = torch.device(device)

@@ -21,20 +21,13 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .common import current_matmul, matmul, shard, spec
+from .common import current_matmul, index_tree, matmul, shard, spec, stack_specs
 
 BN_MOMENTUM = 0.9
 
 
 def conv_spec(kh, kw, cin, cout, name_in="conv_in", name_out="conv_out"):
     return spec((cout, cin, kh, kw), (name_out, name_in, None, None), init="conv")
-
-
-def _stack(specs, n: int):
-    """Add a leading 'layers' dim to every spec in the tree."""
-    if isinstance(specs, dict):
-        return {k: _stack(v, n) for k, v in specs.items()}
-    return dataclasses.replace(specs, shape=(n, *specs.shape), axes=("layers", *specs.axes))
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -166,8 +159,8 @@ def resnet_abstract(c: ResNetConfig) -> tuple[dict, dict]:
         params[f"stage{i}_first"] = _bottleneck_specs(cin, cmid, cout, stride)
         state[f"stage{i}_first"] = _bottleneck_state(cin, cmid, cout, stride)
         if depth > 1:
-            params[f"stage{i}_rest"] = _stack(_bottleneck_specs(cout, cmid, cout, 1), depth - 1)
-            state[f"stage{i}_rest"] = _stack(_bottleneck_state(cout, cmid, cout, 1), depth - 1)
+            params[f"stage{i}_rest"] = stack_specs(_bottleneck_specs(cout, cmid, cout, 1), depth - 1)
+            state[f"stage{i}_rest"] = stack_specs(_bottleneck_state(cout, cmid, cout, 1), depth - 1)
         cin = cout
     params["head"] = {
         "w": spec((cin, c.n_classes), ("embed", "vocab")),
@@ -188,12 +181,6 @@ def _bottleneck(p, s, x, stride, train):
     else:
         sc = x
     return F.relu(h + sc), ns
-
-
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _restack(trees: list):
@@ -217,7 +204,7 @@ def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = Fals
             rest_p, rest_s = params[f"stage{i}_rest"], state[f"stage{i}_rest"]
             new_states = []
             for layer in range(depth - 1):
-                x, s2 = _bottleneck(_index(rest_p, layer), _index(rest_s, layer), x, 1, train)
+                x, s2 = _bottleneck(index_tree(rest_p, layer), index_tree(rest_s, layer), x, 1, train)
                 new_states.append(s2)
             ns[f"stage{i}_rest"] = _restack(new_states)
         x = shard(x, "batch", None, None, None)

@@ -13,7 +13,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..models.common import ParamSpec, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -24,35 +24,39 @@ class QuantStats:
     max_rel_err: float = 0.0
 
 
-def _out_axis(w: torch.Tensor) -> int:
-    """Output-channel axis: O of a conv weight [..., O, I, KH, KW] (rank >= 4,
-    a leading axis stacks repeated blocks), else N of a matrix [..., K, N]."""
-    return w.dim() - 4 if w.dim() >= 4 else w.dim() - 1
+def _out_axis(w: torch.Tensor, spec: ParamSpec) -> int:
+    """Output-channel axis, decided by the leaf's spec: O of a conv weight
+    ``[..., O, I, KH, KW]`` (a leading axis stacks repeated blocks), and the
+    last axis of every other leaf, whatever its rank (ViT's stacked
+    ``wq [L, d, H, hd]`` is per-``hd``, as in the reference)."""
+    return w.dim() - 4 if spec.init == "conv" else w.dim() - 1
 
 
-def _fake_quant(w: torch.Tensor) -> torch.Tensor:
+def _fake_quant(w: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
     """Symmetric per-output-channel int8 quantize-dequantize.  The amax runs
     over every other axis, stacked layers included — the same values the
     reference reduces over in its HWIO layout, so the scales are identical."""
     w32 = w.to(torch.float32)
-    ax = _out_axis(w)
+    ax = _out_axis(w, spec)
     amax = w32.abs().amax(dim=[d for d in range(w.dim()) if d != ax], keepdim=True)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(w32 / scale), -127, 127)
     return (q * scale).to(w.dtype)
 
 
-def fake_quant_tree(params: Any, *, min_ndim: int = 2) -> Any:
+def fake_quant_tree(params: Any, specs: Any, *, min_ndim: int = 2) -> Any:
     """Quantize every floating leaf with ndim >= min_ndim (weights); biases and
-    norm scales stay exact, matching real NPU toolchains."""
+    norm scales stay exact, matching real NPU toolchains.  ``specs`` is the
+    params' spec tree (``arch.abstract_params(arch)[0]``): it says which
+    leaves are convolutions."""
 
-    def q(x):
+    def q(x, s):
         if x.is_floating_point() and x.dim() >= min_ndim:
-            return _fake_quant(x)
+            return _fake_quant(x, s)
         return x
 
     with torch.no_grad():
-        return tree_map(q, params)
+        return tree_map(q, params, specs)
 
 
 def quant_error_stats(params: Any, qparams: Any) -> QuantStats:
@@ -74,9 +78,9 @@ def quant_error_stats(params: Any, qparams: Any) -> QuantStats:
     return stats
 
 
-def npu_variant(params: Any) -> tuple[Any, QuantStats]:
+def npu_variant(params: Any, specs: Any) -> tuple[Any, QuantStats]:
     """The deployable NPU-path weights: int8 fake-quant + stats."""
-    q = fake_quant_tree(params)
+    q = fake_quant_tree(params, specs)
     return q, quant_error_stats(params, q)
 
 

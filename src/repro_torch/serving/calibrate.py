@@ -6,7 +6,9 @@ paper-faithful fallback; this module measures the device the port runs on:
 
   t_npu      median wall time of the int8 variant whose matmuls execute in
              ``kernels/npu_matmul``'s w8a8 CUDA kernel (its plain version on
-             a CPU device) — real quantized arithmetic, not a constant.
+             a CPU device) — real quantized arithmetic, not a constant.  A
+             ViT's matmuls are plain, as in the reference; its attention
+             runs ``kernels/flash_attention``'s CUDA kernel in both variants.
   t_server   median wall time of the full-precision "edge" variant.
   acc_*      top-1 accuracy on held-out ``make_synthetic_video`` frames;
              ``acc_server[r]`` is scored on frames degraded to offload
@@ -34,6 +36,7 @@ from ..arch import abstract_params as arch_params
 from ..arch import classifier_forward
 from ..core.profiles import PAPER_RESOLUTIONS
 from ..device import resolve_device
+from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.npu_matmul import ops as npu_ops
 from ..models.common import init_tree, tree_leaves, tree_map
 from ..train import optim
@@ -171,11 +174,23 @@ def _top1_acc(endpoint, frames, labels, *, chunk: int = 64) -> float:
     return hits / len(frames)
 
 
-def kernel_label(device: torch.device) -> str:
-    """Which int8 GEMM implementation a device runs (recorded in provenance)."""
+def _launches() -> dict[str, int]:
+    """Launch counts of the port's CUDA kernels, by kernel."""
+    return {"int8_matmul": npu_ops.int8_matmul.launches, "flash_attention": flash_ops.flash_attention.launches}
+
+
+def kernel_label(device: torch.device, launches: Mapping[str, int]) -> str:
+    """The kernels behind a model's timed forwards (recorded in provenance):
+    on the card, the CUDA source of each kernel that ``launches`` shows
+    launched; on a CPU device nothing launches and every kernel runs its
+    plain version, so all of those are named."""
+    root = Path(__file__).resolve().parents[1]
+    sources = {"int8_matmul": npu_ops.SOURCE, "flash_attention": flash_ops.SOURCE}
     if device.type == "cuda":
-        return "kernels/npu_matmul/csrc/int8_matmul.cu (cuda)"
-    return "kernels/npu_matmul/ref.py (plain torch, cpu)"
+        ran = [str(sources[k].relative_to(root)) for k, n in launches.items() if n > 0]
+        return f"{', '.join(ran)} (cuda)"
+    plain = [str((src.parents[1] / "ref.py").relative_to(root)) for src in sources.values()]
+    return f"{', '.join(plain)} (plain torch, cpu)"
 
 
 def calibrate_model(
@@ -187,7 +202,7 @@ def calibrate_model(
     arch, params, state, forward, final_loss = train_classifier(
         name, n_classes=cfg.n_classes, res=cfg.res, seed=cfg.seed, steps=steps, device=device
     )
-    qparams, qstats = quant.npu_variant(params)
+    qparams, qstats = quant.npu_variant(params, arch_params(arch)[0])
 
     # The two deployment variants.  The NPU endpoint's forward is wrapped so
     # every matmul (heads, and convs via im2col) runs in the int8 kernel; the
@@ -204,7 +219,7 @@ def calibrate_model(
     )
     t_npu_by_b: dict[str, float] = {}
     t_edge_by_b: dict[str, float] = {}
-    launches0 = npu_ops.int8_matmul.launches
+    launches0 = _launches()
     for b in cfg.batch_sizes:
         x = torch.as_tensor(probe[:b], device=device)
         t_npu_by_b[str(b)] = _median_s(
@@ -213,7 +228,7 @@ def calibrate_model(
         t_edge_by_b[str(b)] = _median_s(
             lambda: edge.forward(x).cpu(), warmup=cfg.warmup, repeats=cfg.repeats
         )
-    timed_launches = npu_ops.int8_matmul.launches - launches0
+    timed_launches = {k: n - launches0[k] for k, n in _launches().items()}
     # The profile's scalar is the per-frame (bucket 1) time; 1 ms floor keeps
     # degenerate sub-ms smoke models from planning as free.
     t_npu_s = max(t_npu_by_b[str(min(cfg.batch_sizes))], 1e-3)
@@ -240,7 +255,7 @@ def calibrate_model(
         "provenance": {
             "source": "measured",
             "backend": device.type,
-            "kernel": kernel_label(device),
+            "kernel": kernel_label(device, timed_launches),
             "kernel_launches_timed": timed_launches,
             "train_steps": steps,
             "final_loss": final_loss,

@@ -98,7 +98,7 @@ def _both(name):
 @pytest.mark.parametrize("name", ["resnet-50", "squeezenet"])
 def test_npu_variant_bit_equal(name):
     _, params_j, state_j, arch_t, params_t, _ = _both(name)
-    q_t, stats_t = quant.npu_variant(params_t)
+    q_t, stats_t = quant.npu_variant(params_t, A.abstract_params(arch_t)[0])
     q_j_as_t, _ = interop.from_jax(arch_t, _reference_qparams(name), state_j, device=CPU)
     for a, b in zip(tree_leaves(q_t), tree_leaves(q_j_as_t)):
         assert torch.equal(a, b)
@@ -120,7 +120,7 @@ def test_smoke_forward_matches_reference(name, variant):
     p_j = jax.tree.map(jnp.asarray, params_j)
     if variant == "npu":
         p_j = jax.tree.map(jnp.asarray, _reference_qparams(name))
-        params_t, _ = quant.npu_variant(params_t)
+        params_t, _ = quant.npu_variant(params_t, A.abstract_params(arch_t)[0])
         f_j = jquant.npu_forward(f_j, interpret=True)
         f_t = quant.npu_forward(f_t)
     out_j = np.asarray(jax.jit(f_j)(p_j, jnp.asarray(frames)))

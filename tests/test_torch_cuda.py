@@ -1,21 +1,37 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Needs an NVIDIA card and nvcc; skips elsewhere.  Imports only ``torch`` and
 ``repro_torch`` (no JAX), so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: exact.  Both sides sum int8 products exactly (int32 in the
-kernel, float64 below 2^53 in the plain version) and apply the same single
-f32 epilogue multiply, so outputs are compared bit for bit.
+Tolerances and why:
+  * int8_matmul: exact.  Both sides sum int8 products exactly (int32 in the
+    kernel, float64 below 2^53 in the plain version) and apply the same
+    single f32 epilogue multiply, so outputs are compared bit for bit;
+  * flash_attention: tests/test_kernels.py's, against the plain version on
+    f32-upcast inputs — f32 rtol 1e-4 / atol 2e-5 (summation order and the
+    online softmax), bf16 rtol 0.05 / atol 0.02 (bf16 inputs and output),
+    at chip_smoke.py's shapes;
+  * the smoke ViT through the kernel against the same forward with the plain
+    attention: logits within 2% of the logit scale (the kernel keeps q.k in
+    f32 where the plain version rounds it to bf16).
 """
 from __future__ import annotations
+
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
+from chip_smoke import FLASH_SHAPES, FLASH_TOL, own_fan_in  # noqa: E402
+
 from repro_torch import arch as A
 from repro_torch import configs, quant
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
 from repro_torch.models.common import init_tree, matmul_backend
 
@@ -65,7 +81,7 @@ def test_npu_forward_through_kernel_equals_plain_backend(cuda_device, name, gemm
     specs, state_specs = A.abstract_params(arch)
     params = init_tree(torch.Generator().manual_seed(0), specs, device=cuda_device)
     state = init_tree(torch.Generator().manual_seed(1), state_specs, device=cuda_device)
-    qparams, _ = quant.npu_variant(params)
+    qparams, _ = quant.npu_variant(params, specs)
 
     def forward(p, x):
         return A.classifier_forward(arch, p, state, x, train=False)[0]
@@ -78,3 +94,45 @@ def test_npu_forward_through_kernel_equals_plain_backend(cuda_device, name, gemm
     with matmul_backend(ref.npu_matmul_ref), torch.no_grad():
         plain = forward(qparams, x)
     assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kh,hd,causal,dtype", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, b, s, t, h, kh, hd, causal, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(b * 7919 + s * 31 + t + hd)
+    q, k, v = (torch.randn(b, n, nh, hd, device=cuda_device, generator=g).to(getattr(torch, dtype))
+               for n, nh in ((s, h), (t, kh), (t, kh)))
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_non_contiguous(cuda_device):
+    q = torch.zeros(1, 4, 8, 2, 16, device=cuda_device).transpose(1, 2)[..., 0, :]
+    k = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_ops.attention(q, k, k, causal=False)
+
+
+@pytest.mark.cuda
+def test_vit_forward_through_flash_kernel_equals_plain_attention(cuda_device, monkeypatch):
+    arch = configs.get("vit-s16", smoke=True)
+    specs, _ = A.abstract_params(arch)
+    params = own_fan_in(init_tree(torch.Generator().manual_seed(0), specs, device=cuda_device), arch.cfg)
+    x = torch.randn(8, 32, 32, 3, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    before = flash_ops.flash_attention.launches
+    with torch.no_grad():
+        out = A.classifier_forward(arch, params, {}, x, train=False)[0]
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches - before == arch.cfg.n_layers
+    monkeypatch.setattr(flash_ops, "attention",
+                        lambda q, k, v, *, causal=True, **_: flash_ref.sdpa_ref(q, k, v, causal=causal))
+    with torch.no_grad():
+        plain = A.classifier_forward(arch, params, {}, x, train=False)[0]
+    assert float((out - plain).abs().max()) <= 0.02 * float(plain.abs().max())

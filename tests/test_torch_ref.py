@@ -36,7 +36,8 @@ CPU = torch.device("cpu")
 def reference_params(arch_name: str, seed: int, *, smoke: bool = True):
     """Random weights for the reference's ``arch_name`` as numpy trees
     (params, state), drawn with numpy from ``seed``: fan-in scaled normals
-    like ``init_tree``, and non-trivial BatchNorm statistics so carrying the
+    like ``init_tree`` (a spec's own ``scale`` where it has one, as ViT's
+    ``cls``/``pos``), and non-trivial BatchNorm statistics so carrying the
     state across is exercised."""
     from repro import configs
     from repro.arch import abstract_params
@@ -51,6 +52,8 @@ def reference_params(arch_name: str, seed: int, *, smoke: bool = True):
             return rng.normal(0.0, 0.05, s.shape).astype(np.float32)  # biases
         if s.init == "ones":
             return rng.uniform(0.8, 1.2, s.shape).astype(np.float32)  # BN scales
+        if s.scale is not None:
+            return (rng.standard_normal(s.shape) * s.scale).astype(np.float32)
         if s.init == "conv":
             fan = np.prod(s.shape[-4:-1])  # KH * KW * Cin (stack axis excluded)
         else:
