@@ -7,15 +7,24 @@ Phases (each raises on failure, so any failure exits non-zero):
   1. environment  card name and power limit, versions, TF32 off, and the
                   build of every CUDA kernel from the sources in this checkout
                   (one nvcc per source, all started together)
-  2. kernels      int8_matmul against its plain version on the card at the
-                  shapes of tests/test_kernels.py and at every GEMM shape one
+  2. kernels      int8_matmul against its plain version on the card at
+                  GEMM_SHAPES (tests/test_kernels.py's, then split-K,
+                  narrow-load and large-M shapes) and at every GEMM shape one
                   forward of full-width ResNet-50 and SqueezeNet issues at
-                  224², batch 1 and 8: bitwise equality, and kernel / plain /
-                  library (torch._int_mm + epilogue) / bound times
+                  224², batch 1 and 8: bitwise equality, kernel / plain /
+                  library (torch._int_mm + epilogue) / bound times, and the
+                  launch each call made (row tile, K splits, blocks, load
+                  path of each operand); then MISALIGNED operands, which must
+                  take the narrow paths, bitwise; then the design over one
+                  frame's GEMMs
   3. flash        flash_attention against its plain version on the card at
-                  the shapes of tests/test_kernels.py, ragged 17·n+3 sizes and
-                  ViT-S/16's shape (batch 1 and 8): the reference's
-                  tolerances, and kernel / plain / library (SDPA) / bound times
+                  FLASH_SHAPES (tests/test_kernels.py's, ragged 17·n+3 sizes,
+                  every bf16 head dim at batch 1 and 8, causal S > T, the
+                  smoke ViT's and ViT-S/16's shapes): the reference's
+                  tolerances, kernel / plain / library (SDPA) / bound times,
+                  blocks and kernel (mma = tensor cores, fma = CUDA cores);
+                  then a misaligned bf16 call, which must take the CUDA-core
+                  kernel; then the design at ViT-S/16's batch-1 shape
   4. serve_full   full-width ResNet-50 and SqueezeNet (random weights from a
                   seed) behind VideoServer + OnlineController(max_accuracy) +
                   EdgeBatchServer over 60 frames at 224²
@@ -41,6 +50,7 @@ where the port's sources are missing.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -77,18 +87,36 @@ FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.p
     (3, 88, 88, 4, 2, 32, True, "float32"), (4, 37, 37, 4, 2, 32, False, "float32"),
     # causal with S > T: the first S - T query rows see no key
     (1, 40, 20, 4, 2, 32, True, "float32"),
-    # the smoke ViT at the batches the front door times (1, 2) and scores (64)
-    (1, *SMOKE_VIT_SHAPE), (2, *SMOKE_VIT_SHAPE), (64, *SMOKE_VIT_SHAPE),
+    # the smoke ViT at the batches the front door times (1, 2), serves (8) and scores (64)
+    (1, *SMOKE_VIT_SHAPE), (2, *SMOKE_VIT_SHAPE), (8, *SMOKE_VIT_SHAPE), (64, *SMOKE_VIT_SHAPE),
     # ViT-S/16 at 224², batch 1 and 8 (the main path's shape)
     (1, *VIT_SHAPE), (8, *VIT_SHAPE),
+    # the tensor-core kernel at every other bf16 head dim, batch 1 and 8 (GQA, ragged, causal)
+    (1, 100, 200, 4, 4, 32, False, "bfloat16"), (8, 88, 88, 4, 2, 32, True, "bfloat16"),
+    (1, 64, 512, 16, 8, 128, True, "bfloat16"), (8, 257, 257, 8, 2, 128, False, "bfloat16"),
+    # bf16 causal with S > T: rows with no key, split over the block's warps
+    (1, 40, 20, 4, 2, 32, True, "bfloat16"), (2, 70, 33, 8, 2, 64, True, "bfloat16"),
+    (1, 50, 17, 2, 1, 16, True, "bfloat16"),
 ]
 FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (0.05, 0.02)}  # (rtol, atol): tests/test_kernels.py's
 VIT_LOGIT_RTOL = 0.02  # max|kernel - plain attention| over max|logit| of the full-width ViT forward
 GEMMS_PER_FORWARD = {"resnet-50": 54, "squeezenet": 26}  # 53 convs + head; 25 convs + classifier conv
-TEST_SHAPES = [  # tests/test_kernels.py:27, :56-58, :78
+TEST_SHAPES = [  # (M, K, N): tests/test_kernels.py:27, :56-58, :78
     (128, 512, 128), (256, 1024, 384), (64, 300, 100), (8, 128, 128), (1, 64, 1),
     (130, 70, 9), (130, 700, 129), (3, 33, 65), (257, 513, 127), (1, 96, 10),
 ]
+PATH_SHAPES = [  # (M, K, N) that take each of the kernel's launch designs
+    # split-K: ResNet-50's stage-4 and stage-3 3x3 convs and its head, batch 1
+    (49, 4608, 512), (196, 2304, 256), (1, 2048, 1000),
+    # narrow loads: K = 27 (SqueezeNet conv1), K = 147 (ResNet-50 conv1), N = 1000 (the
+    # head, above), N = 10 (the smoke models' head); large M (ResNet-50 conv1, batch 1 and 8)
+    (12544, 27, 64), (12544, 147, 64), (8, 64, 10), (100352, 147, 64),
+]
+GEMM_SHAPES = TEST_SHAPES + PATH_SHAPES  # tests/test_torch_cuda.py checks the same list
+MISALIGNED = [  # (M, K, N, byte offset of x_q and w_q): vector shapes forced onto the narrow paths
+    (128, 512, 128, 1), (49, 4608, 512, 1), (128, 512, 128, 4), (1, 2048, 1000, 2),
+]
+PATH_LETTER = {16: "v", 4: "w", 1: "b"}  # int8_matmul's load width per operand: cp.async, narrow words, bytes
 
 
 def log(msg: str) -> None:
@@ -240,19 +268,40 @@ def record_gemms(torch, A, configs, common, name: str, batch: int) -> list[tuple
     return shapes
 
 
-def compare_shape(torch, ops, ref, M: int, K: int, N: int, *, timed: bool = True) -> dict:
+def at_offset(torch, t, offset: int):
+    """A contiguous copy of ``t`` whose data starts ``offset`` elements into
+    its storage, so its pointer is not 16-byte aligned for offset 1 of int8."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def gemm_design(ops, M: int, K: int, N: int, xq, wq) -> dict:
+    """The launch the wrapper makes: row tile, K splits, blocks, and each
+    operand's loads (v = 16-byte cp.async; narrow: w = 4-byte words, b = bytes)."""
+    bm, splits = ops.plan(M, N, K)
+    widths = ops.load_widths(K, N, xq.data_ptr(), wq.data_ptr())
+    return {"tile": bm, "splits": splits, "blocks": ops.cdiv(M, bm) * ops.cdiv(N, ops.BN) * splits,
+            "path": "".join(PATH_LETTER[w] for w in widths)}
+
+
+def compare_shape(torch, ops, ref, M: int, K: int, N: int, *, timed: bool = True, offset: int = 0) -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(M * 7919 + K * 31 + N)
     x = torch.randn(M, K, device=DEVICE, generator=g)
     w = torch.randn(K, N, device=DEVICE, generator=g)
     xq, xs = ref.quantize_rowwise(x)
     wq, ws = ref.quantize_colwise(w)
+    if offset:
+        xq, wq = at_offset(torch, xq, offset), at_offset(torch, wq, offset)
+    design = gemm_design(ops, M, K, N, xq, wq)
     out = ops.int8_matmul(xq, wq, xs, ws)
     plain = ref.int8_matmul_ref(xq, wq, xs, ws)
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     equal = bool(torch.equal(out, plain))
     if not timed:
-        return {"equal": equal, "max_abs_err": err}
+        return {"equal": equal, "max_abs_err": err, **design}
     kernel = lambda: ops.int8_matmul(xq, wq, xs, ws)  # noqa: E731
     plain_fn = lambda: ref.int8_matmul_ref(xq, wq, xs, ws)  # noqa: E731
     # Library yardstick: cuBLAS int8 GEMM + the same epilogue.  cuBLASLt's
@@ -282,6 +331,7 @@ def compare_shape(torch, ops, ref, M: int, K: int, N: int, *, timed: bool = True
         "library_call_ms": cuda_ms(torch, library),
         "library_padded": (Mp, Kp, Np) != (M, K, N),
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        **design,
     }
 
 
@@ -293,21 +343,33 @@ def phase_kernels(torch, A, configs, common, ops, ref) -> tuple[dict, dict]:
     for (name, b), shapes in calls.items():
         check(len(shapes) == GEMMS_PER_FORWARD[name],
               f"{name} batch {b} issues {len(shapes)} GEMMs, expected {GEMMS_PER_FORWARD[name]}")
-    distinct = list(dict.fromkeys(TEST_SHAPES + [s for shapes in calls.values() for s in shapes]))
+    distinct = list(dict.fromkeys(GEMM_SHAPES + [s for shapes in calls.values() for s in shapes]))
     rows = {}
     log("device ms per call (CUDA graph) / per eager call (host launch included)")
     log(f"{'M':>7} {'K':>5} {'N':>5} {'kernel':>8} {'plain':>8} {'library':>9} {'bound':>8} {'by':>5} "
-        f"{'k_call':>7} {'p_call':>7} {'l_call':>7} equal")
+        f"{'k_call':>7} {'p_call':>7} {'l_call':>7} {'tile':>4} {'split':>5} {'blocks':>6} path equal")
     for M, K, N in distinct:
         r = compare_shape(torch, ops, ref, M, K, N)
         rows[(M, K, N)] = r
         log(f"{M:>7} {K:>5} {N:>5} {r['ms']:>8.4f} {r['plain_ms']:>8.4f} {r['library_ms']:>8.4f}"
             f"{'*' if r['library_padded'] else ' '}{r['bound_ms']:>8.5f} {r['bound_by'][:5]:>5} "
-            f"{r['call_ms']:>7.4f} {r['plain_call_ms']:>7.4f} {r['library_call_ms']:>7.4f} {r['equal']}")
+            f"{r['call_ms']:>7.4f} {r['plain_call_ms']:>7.4f} {r['library_call_ms']:>7.4f} "
+            f"{r['tile']:>4} {r['splits']:>5} {r['blocks']:>6} {r['path']:>4} {r['equal']}")
     bad = [k for k, r in rows.items() if not r["equal"]]
     check(not bad, f"kernel and plain version differ at {bad}")
     log(f"kernels: {len(rows)} shapes bitwise equal to the plain version (tolerance: exact)  "
-        "(* = library operands zero-padded to multiples of 16, M >= 32; weight stored [N, K])")
+        "(* = library operands zero-padded to multiples of 16, M >= 32; weight stored [N, K]; "
+        "path = loads of x_q, w_q: v 16-byte cp.async; narrow: w 4-byte words, b bytes)")
+    paths = {r["path"] for r in rows.values()}
+    for i, operand in enumerate(("x_q", "w_q")):
+        check({p[i] for p in paths} == set(PATH_LETTER.values()),
+              f"the shapes exercised {operand} load paths {sorted({p[i] for p in paths})} only")
+    for M, K, N, offset in MISALIGNED:
+        r = compare_shape(torch, ops, ref, M, K, N, timed=False, offset=offset)
+        want = "".join(PATH_LETTER[4 if offset % 4 == 0 else 1] for _ in "xw")
+        log(f"kernels: {M}x{K}x{N} with x_q and w_q {offset} byte(s) off 16-byte alignment: path {r['path']}, "
+            f"tile {r['tile']}, splits {r['splits']}, bitwise equal {r['equal']}")
+        check(r["path"] == want and r["equal"], f"misaligned {(M, K, N, offset)}: {r}")
     # The per-frame NPU work of the main path: every GEMM of one batch-1
     # forward of each full-width model, summed call by call.
     timed = ("ms", "plain_ms", "library_ms", "call_ms", "plain_call_ms", "library_call_ms", "bound_ms")
@@ -322,6 +384,16 @@ def phase_kernels(torch, A, configs, common, ops, ref) -> tuple[dict, dict]:
                 agg[key] += v
         log(f"per-frame GEMMs {name} (batch 1, {GEMMS_PER_FORWARD[name]} calls): "
             + "  ".join(f"{k}={v:.4f}" for k, v in per_model.items()))
+    frame = [rows[s] for name in GEMMS_PER_FORWARD for s in calls[(name, 1)]]
+    blocks = sorted(r["blocks"] for r in frame)
+    log(f"int8_matmul design over one frame's {len(frame)} GEMMs: blocks per call min {blocks[0]} median "
+        f"{blocks[len(blocks) // 2]} max {blocks[-1]}; split-K on {sum(r['splits'] > 1 for r in frame)} calls; "
+        f"row tiles {dict(collections.Counter(r['tile'] for r in frame))}; "
+        f"paths {dict(collections.Counter(r['path'] for r in frame))}")
+    for M, K, N in PATH_SHAPES:
+        r = rows[(M, K, N)]
+        log(f"int8_matmul design at {M}x{K}x{N}: tile {r['tile']}x{ops.BN}, {r['splits']} splits of "
+            f"{ops.k_per_split(K, r['splits'])} steps of {ops.BK} bytes, {r['blocks']} blocks, path {r['path']}")
     return agg, rows
 
 
@@ -342,13 +414,17 @@ def flash_bound(B, S, T, H, KH, hd, causal, dtype) -> tuple[float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * B * H * hd * pairs / peak * 1e3
 
 
-def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True) -> dict:
+def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, offset: int = 0) -> dict:
     import torch.nn.functional as F
 
     B, S, T, H, KH, hd, causal, dt = shape
     g = torch.Generator(device=DEVICE).manual_seed(B * 7919 + S * 31 + T + hd)
     q, k, v = (torch.randn(B, n, h, hd, device=DEVICE, generator=g).to(getattr(torch, dt))
                for n, h in ((S, H), (T, KH), (T, KH)))
+    if offset:
+        q, k, v = (at_offset(torch, t, offset) for t in (q, k, v))
+    design = {"path": flash_ops.kernel_path(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr()),
+              "blocks": flash_ops.blocks(B, S, H, KH)}
     out = flash_ops.flash_attention(q, k, v, causal=causal)
     # the plain version on the f32-upcast inputs (the reference's bf16 test)
     plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
@@ -357,7 +433,7 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True) -> 
     diff = (out.float() - plain).abs()
     ok = bool((diff <= atol + rtol * plain.abs()).all())
     if not timed:
-        return {"ok": ok, "max_abs_err": float(diff.max())}
+        return {"ok": ok, "max_abs_err": float(diff.max()), **design}
     kernel = lambda: flash_ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
     plain_fn = lambda: flash_ref.sdpa_ref(q, k, v, causal=causal)  # noqa: E731
     # Library yardstick: SDPA on [B, H, S, hd] views of the same tensors, the
@@ -378,6 +454,7 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True) -> 
         "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain_fn), "library_ms": graph_ms(torch, library),
         "call_ms": cuda_ms(torch, kernel),
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        **design,
     }
 
 
@@ -386,18 +463,34 @@ def phase_flash(torch, flash_ops, flash_ref) -> dict:
     rows = {}
     log("flash_attention: device ms per call (CUDA graph); k_call = per eager call (host launch included)")
     log(f"{'B':>2} {'S':>4} {'T':>4} {'H':>3} {'KH':>3} {'hd':>4} {'causal':>6} {'dtype':>8} {'kernel':>8} "
-        f"{'plain':>8} {'library':>8} {'bound':>9} {'by':>5} {'k_call':>7} {'max_err':>9} {'lib_err':>9} ok")
+        f"{'plain':>8} {'library':>8} {'bound':>9} {'by':>5} {'k_call':>7} {'max_err':>9} {'lib_err':>9} "
+        f"{'blocks':>6} path ok")
     for shape in FLASH_SHAPES:
         r = compare_flash(torch, flash_ops, flash_ref, shape)
         rows[shape] = r
         B, S, T, H, KH, hd, causal, dt = shape
         log(f"{B:>2} {S:>4} {T:>4} {H:>3} {KH:>3} {hd:>4} {str(causal):>6} {dt:>8} {r['ms']:>8.4f} "
             f"{r['plain_ms']:>8.4f} {r['library_ms']:>8.4f} {r['bound_ms']:>9.6f} {r['bound_by'][:5]:>5} "
-            f"{r['call_ms']:>7.4f} {r['max_abs_err']:>9.2e} {r['library_err']:>9.2e} {r['ok']}")
+            f"{r['call_ms']:>7.4f} {r['max_abs_err']:>9.2e} {r['library_err']:>9.2e} {r['blocks']:>6} "
+            f"{r['path']:>4} {r['ok']}")
     bad = [k for k, r in rows.items() if not r["ok"]]
     check(not bad, f"flash kernel outside tolerance of its plain version at {bad}")
     log(f"flash: {len(rows)} shapes within tolerance of the plain version on f32-upcast inputs "
-        f"(f32 rtol/atol {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']})")
+        f"(f32 rtol/atol {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']}; path mma = tensor cores, "
+        "fma = CUDA cores)")
+    shape = (2, 128, 128, 8, 4, 64, True, "bfloat16")
+    r = compare_flash(torch, flash_ops, flash_ref, shape, timed=False, offset=1)
+    log(f"flash: {shape} with q, k, v one element off 16-byte alignment: path {r['path']}, "
+        f"max|err| {r['max_abs_err']:.3g}, within tolerance {r['ok']}")
+    check(r["path"] == "fma" and r["ok"], f"misaligned bf16 flash: {r}")
+    vit1 = rows[(1, *VIT_SHAPE)]
+    T, hd = VIT_SHAPE[1], VIT_SHAPE[4]
+    kv = flash_ops.kv_tile(hd)
+    n_tiles = -(-T // kv)
+    log(f"flash_attention design at ViT-S/16 batch 1 {VIT_SHAPE}: {vit1['blocks']} blocks of "
+        f"{flash_ops.WARPS} warps ({flash_ops.ROWS} query rows each), path {vit1['path']}; {n_tiles} KV tiles "
+        f"of {kv} columns split over the warps, at most {-(-n_tiles // flash_ops.WARPS)} a warp; "
+        f"batch 8: {rows[(8, *VIT_SHAPE)]['blocks']} blocks")
     return rows
 
 

@@ -7,8 +7,9 @@ Needs an NVIDIA card and nvcc; skips elsewhere.  Imports only ``torch`` and
 
 Tolerances and why:
   * int8_matmul: exact.  Both sides sum int8 products exactly (int32 in the
-    kernel, float64 below 2^53 in the plain version) and apply the same
-    single f32 epilogue multiply, so outputs are compared bit for bit;
+    kernel, split-K partials included; float64 below 2^53 in the plain
+    version) and apply the same single f32 epilogue multiply, so outputs are
+    compared bit for bit, on every load path and split count;
   * flash_attention: tests/test_kernels.py's, against the plain version on
     f32-upcast inputs — f32 rtol 1e-4 / atol 2e-5 (summation order and the
     online softmax), bf16 rtol 0.05 / atol 0.02 (bf16 inputs and output),
@@ -26,7 +27,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
-from chip_smoke import FLASH_SHAPES, FLASH_TOL, own_fan_in  # noqa: E402
+from chip_smoke import FLASH_SHAPES, FLASH_TOL, GEMM_SHAPES, MISALIGNED, at_offset, own_fan_in  # noqa: E402
 
 from repro_torch import arch as A
 from repro_torch import configs, quant
@@ -35,12 +36,7 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
 from repro_torch.models.common import init_tree, matmul_backend
 
-SHAPES = [  # tests/test_kernels.py, then main-path shapes: the ResNet-50 stem,
-    # the per-frame head, the SqueezeNet stem (K = 27) and a stage-3 3x3 conv
-    (128, 512, 128), (256, 1024, 384), (64, 300, 100), (8, 128, 128), (1, 64, 1),
-    (130, 70, 9), (130, 700, 129), (3, 33, 65), (257, 513, 127), (1, 96, 10),
-    (12544, 147, 64), (1, 2048, 1000), (12544, 27, 64), (49, 4608, 512),
-]
+SHAPES = GEMM_SHAPES  # tests/test_kernels.py's, then the split-K, narrow-load and large-M shapes
 
 
 @pytest.fixture
@@ -64,6 +60,37 @@ def test_kernel_bitwise_equals_plain(cuda_device, m, k, n):
     assert ops.int8_matmul.launches == before + 1
     assert out.shape == (m, n) and out.dtype == torch.float32
     assert torch.equal(out, ref.int8_matmul_ref(xq, wq, xs, ws))
+
+
+def _quantized(device, m, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq, xs = ref.quantize_rowwise(torch.randn(m, k, device=device, generator=g))
+    wq, ws = ref.quantize_colwise(torch.randn(k, n, device=device, generator=g))
+    return xq, wq, xs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", MISALIGNED)
+def test_kernel_misaligned_operands_take_narrow_loads(cuda_device, m, k, n, offset):
+    xq, wq, xs, ws = _quantized(cuda_device, m, k, n, seed=m + k + n)
+    xq, wq = at_offset(torch, xq, offset), at_offset(torch, wq, offset)
+    width = 4 if offset % 4 == 0 else 1
+    assert ops.load_widths(k, n, xq.data_ptr(), wq.data_ptr()) == (width, width)
+    out = ops.int8_matmul(xq, wq, xs, ws)
+    assert torch.equal(out, ref.int8_matmul_ref(xq, wq, xs, ws))
+
+
+@pytest.mark.cuda
+def test_split_k_counters_reset_between_calls(cuda_device):
+    """Back-to-back split-K calls on one stream reuse the workspace: each
+    must find its tiles' counters at 0 again."""
+    m, k, n = 49, 4608, 512
+    assert ops.plan(m, n, k)[1] > 1
+    xq, wq, xs, ws = _quantized(cuda_device, m, k, n, seed=5)
+    plain = ref.int8_matmul_ref(xq, wq, xs, ws)
+    outs = [ops.int8_matmul(xq, wq, xs, ws) for _ in range(5)]
+    assert all(torch.equal(o, plain) for o in outs)
+    assert int(ops.workspace(xq.device)[1].abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -110,6 +137,18 @@ def test_flash_kernel_matches_plain(cuda_device, b, s, t, h, kh, hd, causal, dty
     plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
     rtol, atol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), plain, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_misaligned_bf16_takes_cuda_core_kernel(cuda_device):
+    b, s, t, h, kh, hd = 2, 128, 128, 8, 4, 64
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (at_offset(torch, torch.randn(b, n, nh, hd, device=cuda_device, generator=g).bfloat16(), 1)
+               for n, nh in ((s, h), (t, kh), (t, kh)))
+    assert flash_ops.kernel_path(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr()) == "fma"
+    out = flash_ops.attention(q, k, v, causal=True)
+    plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(out.float(), plain, rtol=FLASH_TOL["bfloat16"][0], atol=FLASH_TOL["bfloat16"][1])
 
 
 @pytest.mark.cuda
