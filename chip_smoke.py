@@ -38,7 +38,15 @@ Phases (each raises on failure, so any failure exits non-zero):
   7. main shapes  each kernel against its plain version, untimed, at every
                   shape phases 4-6 gave it that phases 2-3 did not check
                   (the serving buckets, the front door's smoke models)
-  8. report       {"kernels": [...]} line, then the contract's last line
+  8. sim          the audited simulators on device="cuda": run_sim for every
+                  registered policy at the reference's golden setting, the
+                  four DP planners (jax_accuracy/jax_utility plan with tensor
+                  ops on the card) over 900 frames, run_multi under each
+                  allocation policy and with a track fleet, run_online twice
+                  — every result equal to SIM_GOLDENS, the reference's
+                  numbers; then every classify policy on the profiles
+                  serve_full measured on the card; planning time per round
+  9. report       {"kernels": [...]} line, then the contract's last line
 
 Every main-path phase (serve_full, vit_full, serving) sets both kernels'
 launch counts to 0 just before it runs and reads them just after; while
@@ -118,6 +126,29 @@ MISALIGNED = [  # (M, K, N, byte offset of x_q and w_q): vector shapes forced on
 ]
 PATH_LETTER = {16: "v", 4: "w", 1: "b"}  # int8_matmul's load width per operand: cp.async, narrow words, bytes
 
+# The sim phase: the audited simulators, every registered policy, the fleet
+# and online engines, each held against the reference's numbers (SIM_GOLDENS;
+# tests/test_torch_sim.py holds the table against the reference package).
+GOLD_FRAMES = 24  # tests/test_session.py:218, the reference's golden length
+POLICY_PARAMS = {  # tests/test_session.py:37-50: every registered policy, with a sweep's params
+    "max_accuracy": {},
+    "max_utility": {"alpha": 200.0},
+    "local": {},
+    "offload": {},
+    "deepdecision": {},
+    "brute_force": {},
+    "jax_accuracy": {},
+    "jax_utility": {"alpha": 200.0},
+    "track_accuracy": {},
+    "track_fixed": {"k": 3},
+}
+TRACK_POLICIES = ("track_accuracy", "track_fixed")  # planned with WorkloadSpec("track")
+PIECEWISE = [[0.0, 3.5], [1.0, 0.8]]  # (t_start s, Mbps): tests/test_session.py:277-293's trace
+DP_FRAMES = 900  # the paper's stream length: 30 s at 30 fps
+DP_POLICIES = ("max_accuracy", "max_utility", "jax_accuracy", "jax_utility")
+ALLOCATIONS = ("weighted_fair", "priority", "fifo")
+CARD_FRAMES = 300  # the card-profiled runs (brute_force at GOLD_FRAMES)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -180,7 +211,8 @@ def flash_key(q, k, v, *, causal) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def phase_environment(torch, build, sources) -> None:
+def phase_environment(torch, build, sources) -> str:
+    """Returns the card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -197,6 +229,7 @@ def phase_environment(torch, build, sources) -> None:
         for line in text.strip().splitlines():
             log(f"nvcc[{name}]: {line}")
     log(f"kernel build: {build_s:.2f} s ({len(logs)} source(s) compiled in parallel)")
+    return smi[0]
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +566,7 @@ def serve_frames(torch, core, serving, ops, flash_ops, models, npu_fns, edge_fns
     for ep in batched.values():
         ep.warmup(frames[0])
     controller = core.OnlineController(models=models, stream=stream, policy="max_accuracy",
-                                       estimator=core.BandwidthEstimator(init_bps=mbps * 1e6))
+                                       estimator=core.BandwidthEstimator(init_bps=mbps * 1e6), device=DEVICE)
     controller.estimator.observe_rtt(0.1)
     server = serving.VideoServer(controller=controller, npu_endpoints=npu_eps, stream=stream,
                                  trace=core.Trace.constant(mbps), edge_server=serving.EdgeBatchServer(batched),
@@ -544,8 +577,9 @@ def serve_frames(torch, core, serving, ops, flash_ops, models, npu_fns, edge_fns
     return server, summary, ops.int8_matmul.launches, flash_ops.flash_attention.launches
 
 
-def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving) -> int:
-    """Returns the int8 kernel launches of the 60-frame serving run."""
+def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving) -> tuple[int, dict]:
+    """Returns the int8 kernel launches of the 60-frame serving run and the
+    batch-1 ms per frame of each (model, variant)."""
     n_frames = 60
     models = {}
     for name in GEMMS_PER_FORWARD:
@@ -579,7 +613,9 @@ def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core
         log(f"serve_full: {name} NPU forward at {RES}x{RES} batch 8: {launches} launches, logits bit-equal to "
             f"the plain backend, |logit| max {float(kern.abs().max()):.4g}")
 
-    # Per-frame latency of both variants at batch 1 and 8 (host clock, synced).
+    # Per-frame latency of both variants at batch 1 and 8 (host clock, synced);
+    # the batch-1 medians are the card's profile for the sim phase.
+    t_ms = {}
     for name, (forward, params, qparams) in models.items():
         npu_fwd = quant.npu_forward(forward)
         for b in (1, 8):
@@ -595,6 +631,8 @@ def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core
                         call()
                         ts.append(time.perf_counter() - t0)
                 ms = sorted(ts)[len(ts) // 2] * 1e3
+                if b == 1:
+                    t_ms[(name, variant)] = ms
                 log(f"serve_full: {name} {variant} batch {b}: {ms:.3f} ms per forward, {ms / b:.3f} ms per frame")
 
     mbps = choose_bandwidth(core, core.PAPER_MODELS, n_frames)
@@ -611,7 +649,7 @@ def phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core
     check(summary["frames"] == n_frames, f"answered {summary['frames']} of {n_frames} frames")
     check(summary["npu_frames"] > 0 and summary["edge_frames"] > 0, "both NPU and edge paths must be used")
     check(launches == expected, f"kernel launches {launches} != {expected}")
-    return launches
+    return launches, t_ms
 
 
 # ---------------------------------------------------------------------------
@@ -788,6 +826,168 @@ def phase_main_shapes(torch, ops, ref, flash_ops, flash_ref, gemms, attns) -> tu
 
 
 # ---------------------------------------------------------------------------
+# 8. sim: the audited simulators and every policy, against the reference
+# ---------------------------------------------------------------------------
+
+
+def sim_cases(scenariogen) -> dict:
+    """Case name -> (mode, ScenarioSpec JSON): the reference's golden
+    settings (tests/test_session.py:218-293), the four DP planners over the
+    paper's stream length, three fleets and a track fleet, and two online
+    runs.  ``scenariogen`` is the package's own, so the same table can be
+    computed by either package."""
+    cases = {}
+    for name, params in POLICY_PARAMS.items():
+        spec = {"policy": {"name": name, "params": params}, "n_frames": GOLD_FRAMES,
+                "trace": {"kind": "constant", "mbps": 2.5}}
+        if name in TRACK_POLICIES:
+            spec["workload"] = {"kind": "track"}
+        cases[f"sim/{name}"] = ("sim", spec)
+    for name in DP_POLICIES:
+        cases[f"sim{DP_FRAMES}/{name}"] = ("sim", {
+            "policy": {"name": name, "params": POLICY_PARAMS[name]}, "n_frames": DP_FRAMES,
+            "trace": {"kind": "piecewise", "points": PIECEWISE}})
+    # 3 clients, capacity 4 (tests/test_session.py:256-275) at 12 Mbps; the
+    # track fleet at 30 Mbps, where its detections are offloaded.
+    fleets = [(alloc, "max_accuracy", 12.0) for alloc in ALLOCATIONS] + [("weighted_fair", "track_accuracy", 30.0)]
+    for alloc, name, mbps in fleets:
+        spec = {"policy": {"name": name, "params": {}}, "n_frames": GOLD_FRAMES,
+                "trace": {"kind": "constant", "mbps": mbps},
+                "fleet": {"n_clients": 3, "allocation": alloc, "capacity": 4}}
+        if name in TRACK_POLICIES:
+            spec["workload"] = {"kind": "track"}
+        cases[f"multi/{alloc}/{name}"] = ("multi", spec)
+    cases["online/piecewise"] = ("online", {"policy": {"name": "max_accuracy", "params": {}}, "n_frames": 90,
+                                            "trace": {"kind": "piecewise", "points": PIECEWISE}})
+    cases["online/mobility_square"] = (
+        "online", scenariogen.make_scenario("mobility_square", policy="max_accuracy").to_json())
+    return cases
+
+
+def sim_result(report) -> dict:
+    """What the contract compares exactly: per stream (frames total,
+    processed, missed, offloaded, planner calls, accuracy sum), and the
+    meta the fleet and online engines report."""
+    out = {"streams": [[s.frames_total, s.frames_processed, s.frames_missed_deadline, s.frames_offloaded,
+                        s.schedule_calls, s.accuracy_sum] for s in report.streams]}
+    for key in ("server_jobs", "server_utilization", "grants", "denials", "rounds", "estimated_bps"):
+        if key in report.meta:
+            out[key] = report.meta[key]
+    return out
+
+
+def sim_table(session, scenariogen, run) -> tuple[dict, dict]:
+    """Every case of :func:`sim_cases` through ``run(spec, mode)``; returns
+    ({case: sim_result}, {case: report})."""
+    reports = {name: run(session.ScenarioSpec.from_json(spec), mode)
+               for name, (mode, spec) in sim_cases(scenariogen).items()}
+    return {name: sim_result(r) for name, r in reports.items()}, reports
+
+
+def planning_ms(reports) -> str:
+    return ", ".join(f"{name} {1e3 * sum(s.schedule_time for s in r.streams) / sum(s.schedule_calls for s in r.streams):.3f}"
+                     for name, r in reports.items())
+
+
+def phase_sim(torch, core, session, scenariogen, t_ms, smi: str) -> None:
+    """Every case of :func:`sim_cases` on the card, held against
+    SIM_GOLDENS; then every classify policy on the profiles serve_full
+    measured on the card; planning time per round throughout."""
+    t0 = time.perf_counter()
+    table, reports = sim_table(session, scenariogen,
+                               lambda spec, mode: session.Session(spec, device=DEVICE).run(mode))
+    bad = sorted(name for name in SIM_GOLDENS if table.get(name) != SIM_GOLDENS[name])
+    for name in bad:
+        log(f"sim: {name}: port {table.get(name)} reference {SIM_GOLDENS[name]}")
+    check(table.keys() == SIM_GOLDENS.keys(), f"sim cases {sorted(table)} != SIM_GOLDENS {sorted(SIM_GOLDENS)}")
+    check(not bad, f"sim results differ from the reference's at {bad}")
+    for name, row in table.items():
+        log(f"sim: {name}: {json.dumps(row)}")
+    log(f"sim: {len(table)} cases equal the reference's (integer stats, accuracy sums, fleet and online meta "
+        f"exact) in {time.perf_counter() - t0:.1f} s on device={DEVICE}")
+    log(f"sim: planning ms per round ({smi}): {planning_ms(reports)}")
+    # The on-device planners' rounds on the host CPU, same cases, for comparison.
+    host = {name: session.Session(session.ScenarioSpec.from_json(spec), device="cpu").run(mode)
+            for name, (mode, spec) in sim_cases(scenariogen).items() if name.startswith(f"sim{DP_FRAMES}/jax_")}
+    check(all(sim_result(r) == table[name] for name, r in host.items()), "jax_* planners on the CPU differ")
+    log(f"sim: planning ms per round of the same runs with device='cpu' (the host's cores): {planning_ms(host)}")
+
+    # The planners on the card's own profiles: serve_full's batch-1 medians.
+    models = tuple(core.profile_ms(name, t_npu_ms=t_ms[(name, "npu")], t_server_ms=t_ms[(name, "edge")],
+                                   acc_server=base.acc_server, acc_npu=base.acc_npu)
+                   for name, base in (("resnet-50", core.RESNET50), ("squeezenet", core.SQUEEZENET)))
+    log("sim: card profiles (serve_full, batch 1): " + ", ".join(
+        f"{m.name} t_npu {1e3 * m.t_npu:.3f} ms t_server {1e3 * m.t_server:.3f} ms" for m in models))
+    card = {}
+    for name, params in POLICY_PARAMS.items():
+        if name in TRACK_POLICIES:
+            continue
+        n = GOLD_FRAMES if name == "brute_force" else CARD_FRAMES
+        spec = session.ScenarioSpec(policy=core.PolicySpec(name, params), n_frames=n, models=models,
+                                    trace=session.TraceSpec(kind="piecewise", points=tuple(map(tuple, PIECEWISE))))
+        st = session.Session(spec, device=DEVICE).run_sim().stats
+        card[name] = session.RunReport("sim", spec, [st])
+        log(f"sim: card profiles, {name} over {n} frames: processed {st.frames_processed}, offloaded "
+            f"{st.frames_offloaded}, missed {st.frames_missed_deadline}, mean accuracy {st.mean_accuracy:.4f}")
+        check(st.frames_total == n and 0 < st.frames_processed <= n and 0 <= st.frames_offloaded <= st.frames_processed
+              and st.frames_processed + st.frames_missed_deadline <= n + st.frames_offloaded,
+              f"{name} on the card's profiles: stats break the audit's invariants: {st}")
+    log(f"sim: card profiles, planning ms per round ({smi}): {planning_ms(card)}")
+
+
+# The reference's numbers for every case of sim_cases(), computed by
+# ``repro`` (tests/test_torch_sim.py::test_sim_goldens_equal_reference checks
+# this table against it): per stream [frames total, processed, missed,
+# offloaded, planner calls, accuracy sum], and the fleet and online meta.
+SIM_GOLDENS = {'sim/max_accuracy': {'streams': [[24, 24, 0, 2, 5, 11.579999999999998]]},
+ 'sim/max_utility': {'streams': [[24, 23, 0, 3, 4, 11.269999999999998]]},
+ 'sim/local': {'streams': [[24, 24, 0, 0, 4, 11.489999999999998]]},
+ 'sim/offload': {'streams': [[24, 24, 0, 24, 24, 4.800000000000002]]},
+ 'sim/deepdecision': {'streams': [[24, 24, 0, 0, 1, 9.840000000000002]]},
+ 'sim/brute_force': {'streams': [[24, 24, 0, 6, 4, 11.759999999999998]]},
+ 'sim/jax_accuracy': {'streams': [[24, 24, 0, 0, 4, 11.489999999999998]]},
+ 'sim/jax_utility': {'streams': [[24, 19, 0, 0, 4, 9.769999999999996]]},
+ 'sim/track_accuracy': {'streams': [[24, 24, 0, 0, 12, 11.543999999999999]]},
+ 'sim/track_fixed': {'streams': [[24, 24, 0, 0, 8, 10.701600000000001]]},
+ 'sim900/max_accuracy': {'streams': [[900, 900, 0, 1, 151, 415.630000000002]]},
+ 'sim900/max_utility': {'streams': [[900, 609, 0, 4, 150, 312.21000000000026]]},
+ 'sim900/jax_accuracy': {'streams': [[900, 900, 0, 0, 150, 415.6400000000019]]},
+ 'sim900/jax_utility': {'streams': [[900, 603, 0, 0, 150, 309.8200000000004]]},
+ 'multi/weighted_fair/max_accuracy': {'streams': [[24, 24, 0, 1, 5, 11.479999999999999],
+                                                  [24, 24, 0, 0, 4, 11.489999999999998],
+                                                  [24, 24, 0, 0, 4, 11.489999999999998]],
+                                      'server_jobs': 1,
+                                      'server_utilization': 0.011249999999999998,
+                                      'grants': 11,
+                                      'denials': 2},
+ 'multi/priority/max_accuracy': {'streams': [[24, 24, 0, 1, 5, 11.479999999999999],
+                                             [24, 24, 0, 0, 4, 11.489999999999998],
+                                             [24, 24, 0, 0, 4, 11.489999999999998]],
+                                 'server_jobs': 1,
+                                 'server_utilization': 0.011249999999999998,
+                                 'grants': 11,
+                                 'denials': 2},
+ 'multi/fifo/max_accuracy': {'streams': [[24, 0, 24, 0, 24, 0.0], [24, 0, 24, 0, 24, 0.0], [24, 0, 24, 0, 24, 0.0]],
+                             'server_jobs': 72,
+                             'server_utilization': 6.209999999999996,
+                             'grants': 72,
+                             'denials': 0},
+ 'multi/weighted_fair/track_accuracy': {'streams': [[24, 24, 0, 24, 24, 13.440000000000008],
+                                                    [24, 24, 0, 0, 12, 11.543999999999999],
+                                                    [24, 24, 0, 0, 12, 11.543999999999999]],
+                                        'server_jobs': 24,
+                                        'server_utilization': 2.069999999999999,
+                                        'grants': 24,
+                                        'denials': 24},
+ 'online/piecewise': {'streams': [[90, 88, 2, 4, 18, 41.42999999999999]],
+                      'rounds': 18,
+                      'estimated_bps': 1910699.9999999995},
+ 'online/mobility_square': {'streams': [[120, 120, 0, 0, 20, 55.79999999999998]],
+                            'rounds': 20,
+                            'estimated_bps': 3150000.0}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -801,7 +1001,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import arch as A
-    from repro_torch import configs, core, quant, serving, session
+    from repro_torch import configs, core, quant, scenariogen, serving, session
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -811,13 +1011,13 @@ def main() -> int:
     from repro_torch.serving.calibrate import _median_s
 
     t0 = time.perf_counter()
-    phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE])
+    smi = phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE])
     agg, gemm_rows = phase_kernels(torch, A, configs, common, ops, ref)
     flash_rows = phase_flash(torch, flash_ops, flash_ref)
     torch.cuda.empty_cache()
     gemms, attns = set(), set()
     with recording(ops, "int8_matmul", gemm_key, gemms), recording(flash_ops, "flash_attention", flash_key, attns):
-        full_launches = phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving)
+        full_launches, t_ms = phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving)
         torch.cuda.empty_cache()
         vit_int8, vit_flash = phase_vit_full(torch, A, configs, common, quant, ops, flash_ops, flash_ref, core,
                                              serving, _median_s)
@@ -825,6 +1025,12 @@ def main() -> int:
         serving_int8, serving_flash = phase_serving(torch, ops, flash_ops, serve, session)
     more_gemms, more_flash = phase_main_shapes(torch, ops, ref, flash_ops, flash_ref,
                                                gemms - gemm_rows.keys(), attns - flash_rows.keys())
+    # The simulators run on profiles, not on models: no kernel launches.
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+    phase_sim(torch, core, session, scenariogen, t_ms, smi)
+    sim_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+    log(f"sim: kernel launches (int8_matmul, flash_attention) {sim_launches}")
+    check(sim_launches == (0, 0), "the simulators launched a model kernel")
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + serving_int8

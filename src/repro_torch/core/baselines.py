@@ -1,7 +1,7 @@
-"""Baseline policies from paper §VI.C: Offload and Local.
+"""Baseline policies from paper §VI.C: Offload, Local, DeepDecision.
 
 Each exposes ``plan_round(models, stream, net, *, npu_free, ...) -> RoundPlan``
-with the same round contract as Max-Accuracy/Max-Utility, so the controller
+with the same round contract as Max-Accuracy/Max-Utility, so the simulator
 treats every policy identically.
 """
 from __future__ import annotations
@@ -122,3 +122,105 @@ def local_plan_round(
     return RoundPlan(
         decisions=decisions, horizon=n, expected_utility=dp.utility, npu_busy_until=npu_last
     )
+
+
+@register_policy(
+    "deepdecision",
+    params=(_ALPHA, Param.number("window_s", 1.0, doc="fixed decision window (s)")),
+    doc="§VI.C DeepDecision baseline: one (place, model, resolution) per window.",
+)
+def deepdecision_plan_round(
+    models: Sequence[ModelProfile],
+    stream: StreamSpec,
+    net: NetworkState,
+    *,
+    npu_free: float = 0.0,
+    alpha: float | None = None,
+    window_s: float = 1.0,
+) -> RoundPlan:
+    """Simplified DeepDecision [Ran et al., INFOCOM'18] per paper §VI.C: pick
+    ONE (location, model, resolution) at the start of each fixed window and
+    apply it to every frame in the window.  Sustainability gates the choice:
+    local needs T_j^npu <= gamma, offload needs S/B <= gamma.  Frames beyond
+    the sustainable rate are dropped (hurts accuracy mode, lowers rate in
+    utility mode)."""
+    gamma, T = stream.gamma, stream.deadline
+    n = max(int(round(window_s / gamma)), 1)
+    best_plan: RoundPlan | None = None
+    best_score = -1e18
+
+    def consider(plan: RoundPlan, score: float) -> None:
+        nonlocal best_plan, best_score
+        if score > best_score:
+            best_plan, best_score = plan, score
+
+    # Local single-model choices.
+    for j, m in enumerate(models):
+        if not m.runs_local or m.t_npu > T:
+            continue
+        a = m.accuracy(stream.r_max, where="npu")
+        stride = max(int(np.ceil(m.t_npu / gamma)), 1)  # process every stride-th frame
+        decisions = []
+        free = max(npu_free, 0.0)
+        processed = 0
+        acc_sum = 0.0
+        for k in range(n):
+            arrival = k * gamma
+            if k % stride == 0 and max(free, arrival) + m.t_npu <= arrival + T + 1e-12:
+                start = max(free, arrival)
+                free = start + m.t_npu
+                decisions.append(Decision(k, Where.NPU, j, stream.r_max, start=start, finish=free))
+                processed += 1
+                acc_sum += a
+            else:
+                decisions.append(Decision(k, Where.SKIP))
+        if alpha is None:
+            score = acc_sum / n
+        else:
+            score = processed / (n * gamma) + (alpha * acc_sum / processed if processed else 0.0)
+        consider(
+            RoundPlan(
+                decisions=decisions,
+                horizon=n,
+                expected_accuracy_sum=acc_sum,
+                expected_utility=score if alpha is not None else 0.0,
+                npu_busy_until=free,
+            ),
+            score,
+        )
+
+    # Offload single-(model, resolution) choices.
+    for r in stream.resolutions:
+        t_up = net.upload_time(stream.frame_bytes(r))
+        if t_up > gamma:
+            continue
+        budget = T - t_up - net.rtt
+        pick = best_server_model(models, r, budget)
+        if pick is None:
+            continue
+        j, a = pick
+        decisions = []
+        for k in range(n):
+            arrival = k * gamma
+            decisions.append(
+                Decision(
+                    k, Where.SERVER, j, r, start=arrival, finish=arrival + t_up + net.rtt + models[j].t_server
+                )
+            )
+        acc_sum = a * n
+        score = acc_sum / n if alpha is None else n / (n * gamma) + alpha * a
+        consider(
+            RoundPlan(
+                decisions=decisions,
+                horizon=n,
+                expected_accuracy_sum=acc_sum,
+                expected_utility=score if alpha is not None else 0.0,
+                npu_busy_until=npu_free,
+                net_busy_until=(n - 1) * gamma + t_up,
+            ),
+            score,
+        )
+
+    if best_plan is None:
+        best_plan = RoundPlan(decisions=[Decision(0, Where.SKIP)], horizon=1, npu_busy_until=npu_free)
+    return best_plan

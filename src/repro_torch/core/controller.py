@@ -9,7 +9,7 @@ whole controller can be replayed deterministically in tests.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 from .profiles import ModelProfile, NetworkState, StreamSpec
 from .registry import PolicySpec
@@ -63,7 +63,8 @@ class OnlineController:
     The policy is a registry :class:`PolicySpec` (or a bare name).  The
     legacy ``policy_name``/``alpha`` pair is still accepted when ``policy``
     is left unset, and is folded into a spec — so the controller itself is
-    serializable as part of a ``ScenarioSpec``.
+    serializable as part of a ``ScenarioSpec``.  ``device`` is where a
+    policy that plans with tensor ops runs (see ``PolicySpec.build``).
     """
 
     models: Sequence[ModelProfile]
@@ -72,6 +73,7 @@ class OnlineController:
     policy_name: str = "max_accuracy"  # legacy; used only when policy is None
     alpha: float | None = None  # legacy; used only when policy is None
     estimator: BandwidthEstimator = field(default_factory=BandwidthEstimator)
+    device: Any = "cuda"
     _policy: Policy = field(init=False)
     npu_busy_abs: float = field(default=0.0, init=False)
     rounds: int = field(default=0, init=False)
@@ -79,7 +81,7 @@ class OnlineController:
     def __post_init__(self) -> None:
         self.policy = PolicySpec.coerce(self.policy, policy_name=self.policy_name, alpha=self.alpha)
         self.policy_name = self.policy.name
-        self._policy = self.policy.build()
+        self._policy = self.policy.build(device=self.device)
 
     def next_plan(self, head_frame: int) -> RoundPlan:
         t0 = head_frame * self.stream.gamma

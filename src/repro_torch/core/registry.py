@@ -1,21 +1,28 @@
 """Policy registry: every scheduling policy is a first-class, named object.
 
-The paper's two solvers (Max-Accuracy §IV, Max-Utility §V) and the §VI.C
-Offload/Local baselines register here with a declared parameter schema;
-callers construct them by name through :class:`PolicySpec`:
+The paper's two solvers (Max-Accuracy §IV, Max-Utility §V), the three §VI.C
+baselines, the brute-force oracle, the detect+track planners and the
+on-device DPs of ``jax_sched`` register here with a declared parameter
+schema; callers construct them by name through :class:`PolicySpec`:
 
     spec = PolicySpec("max_utility", {"alpha": 200.0})
-    policy = spec.build()          # controller-ready plan_round callable
+    policy = spec.build()          # simulator-ready plan_round callable
     spec2 = PolicySpec.from_json(spec.to_json())
 
 Parameter validation is strict: an unknown parameter, a missing required one,
-or a wrong type raises ``ValueError`` at spec-construction time.
+a wrong type or a value out of bounds raises ``ValueError`` at
+spec-construction time.
+
+A policy whose function takes ``device=`` plans with tensor ops on that
+device; ``PolicySpec.build(device=...)`` hands it over.  The device is never
+a policy parameter and never appears in the JSON.
 
 This module imports no policy module at top level (they import us for the
 decorator); ``_ensure_builtins`` pulls them in lazily on first lookup.
 """
 from __future__ import annotations
 
+import inspect
 import json
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Sequence
@@ -46,6 +53,8 @@ class Param:
     default: Any = _REQUIRED
     nullable: bool = False
     doc: str = ""
+    lo: Any = None  # inclusive lower bound (numeric params only)
+    hi: Any = None  # inclusive upper bound (numeric params only)
 
     @property
     def required(self) -> bool:
@@ -53,15 +62,27 @@ class Param:
 
     @staticmethod
     def number(
-        name: str, default: Any = _REQUIRED, *, nullable: bool = False, doc: str = ""
+        name: str,
+        default: Any = _REQUIRED,
+        *,
+        nullable: bool = False,
+        doc: str = "",
+        lo: Any = None,
+        hi: Any = None,
     ) -> "Param":
-        return Param(name, (float, int), default, nullable, doc)
+        return Param(name, (float, int), default, nullable, doc, lo, hi)
 
     @staticmethod
     def integer(
-        name: str, default: Any = _REQUIRED, *, nullable: bool = False, doc: str = ""
+        name: str,
+        default: Any = _REQUIRED,
+        *,
+        nullable: bool = False,
+        doc: str = "",
+        lo: Any = None,
+        hi: Any = None,
     ) -> "Param":
-        return Param(name, (int,), default, nullable, doc)
+        return Param(name, (int,), default, nullable, doc, lo, hi)
 
     def check(self, policy: str, value: Any) -> Any:
         if value is None:
@@ -76,6 +97,15 @@ class Param:
                 f"policy {policy!r}: parameter {self.name!r} expects {want}, "
                 f"got {type(value).__name__} ({value!r})"
             )
+        if (self.lo is not None and value < self.lo) or (
+            self.hi is not None and value > self.hi
+        ):
+            lo = "-inf" if self.lo is None else repr(self.lo)
+            hi = "+inf" if self.hi is None else repr(self.hi)
+            raise ValueError(
+                f"policy {policy!r}: parameter {self.name!r} must be in "
+                f"[{lo}, {hi}], got {value!r}"
+            )
         return value
 
 
@@ -83,9 +113,11 @@ class Param:
 class PolicyEntry:
     """A registered policy: the plan_round callable plus its parameter schema.
 
-    ``workloads`` names the workload kinds the policy can plan for; every
-    policy ported so far plans the paper's independent-frame ``classify``
-    workload.
+    ``workloads`` names the workload kinds the policy can plan for:
+    classification policies see independent frames; tracking policies
+    (``workloads=("track",)``) plan a detector placement *and* a detector
+    interval per round.  ``takes_device`` is set when ``fn`` accepts
+    ``device=`` (it plans with tensor ops).
     """
 
     name: str
@@ -93,6 +125,7 @@ class PolicyEntry:
     params: tuple[Param, ...] = ()
     doc: str = ""
     workloads: tuple[str, ...] = ("classify",)
+    takes_device: bool = False
 
     def param(self, name: str) -> Param | None:
         for p in self.params:
@@ -148,6 +181,7 @@ def register_policy(
             params=tuple(params),
             doc=doc or (fn.__doc__ or "").strip(),
             workloads=tuple(workloads),
+            takes_device="device" in inspect.signature(fn).parameters,
         )
         return fn
 
@@ -160,7 +194,14 @@ def _ensure_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
-    from . import baselines, max_accuracy, max_utility  # noqa: F401
+    from . import (  # noqa: F401
+        baselines,
+        brute_force,
+        jax_sched,
+        max_accuracy,
+        max_utility,
+        tracking,
+    )
 
 
 def get_policy(name: str) -> PolicyEntry:
@@ -213,10 +254,18 @@ class PolicySpec:
             return PolicySpec(policy)
         return policy
 
-    def build(self):
-        """Return a controller-ready policy callable (the round closure)."""
+    def build(self, *, device: Any = "cuda"):
+        """Return a simulator-ready policy callable (the round closure).
+
+        ``device`` reaches the policies that plan with tensor ops (checked
+        by ``resolve_device``: asking for the card where there is none
+        raises); the plain-Python planners ignore it."""
         entry = get_policy(self.name)
         kw = dict(self.params)
+        if entry.takes_device:
+            from ..device import resolve_device
+
+            kw["device"] = resolve_device(device)
 
         def policy(models, stream, net, *, npu_free: float = 0.0):
             return entry.fn(models, stream, net, npu_free=npu_free, **kw)

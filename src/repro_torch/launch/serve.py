@@ -93,6 +93,7 @@ def run_scenario(spec: "ScenarioSpec", *, device: torch.device | str = "cuda") -
         stream=spec.stream,
         policy=spec.policy,
         estimator=BandwidthEstimator(init_bps=net0.bandwidth_bps),
+        device=device,
     )
     controller.estimator.observe_rtt(net0.rtt)
     server = VideoServer(

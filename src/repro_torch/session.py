@@ -7,31 +7,46 @@ reference's schema, so one spec file runs in either package.
 :class:`Session` routes a spec to an execution engine behind a uniform
 :class:`RunReport`:
 
+    run_sim      single stream through the audited simulator (§VI figures)
+    run_multi    N streams on a shared fluid uplink + edge server
+    run_online   the OnlineController with *estimated* bandwidth, audited
+                 against the true trace (the deployable configuration)
     run_serving  real models on the card behind the controller (launch/serve)
 
-The simulator, online and sweep engines are not ported yet; their methods
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Policies that plan with tensor ops (``jax_accuracy``, ``jax_utility``) run
+on the Session's device.  The sweep engine is not ported yet: ``run_sweep``
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 
     from repro_torch.core.registry import PolicySpec
     from repro_torch.session import ScenarioSpec, Session
 
-    spec = ScenarioSpec(policy=PolicySpec("max_accuracy"), n_frames=64)
-    report = Session(spec).run_serving()      # device="cuda" by default
+    spec = ScenarioSpec(policy=PolicySpec("max_accuracy"), n_frames=120)
+    report = Session(spec).run_sim()          # device="cuda" by default
+    print(report.stats.mean_accuracy)
+
+or from the shell::
+
+    PYTHONPATH=src python -m repro_torch.session scenario.json --mode sim --device cpu
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
+import time
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import torch
 
-from .core.edge_server import ALLOCATION_POLICIES
+from .core.audit import AUDIT_TOL, apply_round, audit_round
+from .core.controller import BandwidthEstimator, OnlineController
+from .core.edge_server import ALLOCATION_POLICIES, EdgeServerScheduler, make_fleet
 from .core.profiles import PAPER_MODELS, ModelProfile, StreamSpec
-from .core.registry import PolicySpec, get_policy
+from .core.registry import PolicySpec, available_policies, get_policy
 from .core.schedule import StreamStats
-from .core.simulator import Trace
+from .core.simulator import Trace, simulate, simulate_multi
 from .core.tracking import WorkloadSpec
 from .device import resolve_device
 
@@ -361,9 +376,9 @@ class RunReport:
 # Session facade
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = (
-    "Session.{mode} is not ported to repro_torch yet; see ROADMAP.md, "
-    "'Modules to port', item {item}"
+_SWEEP_NOT_PORTED = (
+    "Session.run_sweep is not ported to repro_torch yet; see ROADMAP.md, "
+    "'Modules to port', item 5 (the float64 jax_sched DPs, bucketing, sim_batch, run_sweep)"
 )
 
 
@@ -382,17 +397,140 @@ class Session:
             raise ValueError(f"unknown mode {mode!r}; want one of {self.MODES}")
         return getattr(self, f"run_{mode}")()
 
+    # -- mode: audited single-stream simulation ----------------------------
     def run_sim(self) -> RunReport:
-        raise NotImplementedError(_NOT_PORTED.format(mode="run_sim", item="3 (run_sim/run_multi/run_online)"))
+        spec = self.spec
+        stats = simulate(
+            spec.policy.build(device=self.device),
+            list(spec.models),
+            spec.stream,
+            spec.trace.build(),
+            spec.n_frames,
+            strict=spec.strict,
+            workload=spec.workload,
+        )
+        return RunReport("sim", spec, [stats], meta={"policy": spec.policy.name})
 
+    # -- mode: N streams, shared fluid uplink + edge server ----------------
     def run_multi(self) -> RunReport:
-        raise NotImplementedError(_NOT_PORTED.format(mode="run_multi", item="3 (run_sim/run_multi/run_online)"))
+        spec = self.spec
+        fleet = spec.fleet if spec.fleet is not None else FleetSpec()
+        clients = make_fleet(
+            fleet.n_clients,
+            stream=spec.stream,
+            models=list(spec.models),
+            policy=spec.policy,
+            weights=fleet.weights,
+            priorities=fleet.priorities,
+            device=self.device,
+        )
+        sched = EdgeServerScheduler(
+            clients,
+            policy=fleet.allocation,
+            capacity=fleet.capacity,
+            backlog_limit=fleet.backlog_limit,
+        )
+        ms = simulate_multi(
+            sched,
+            spec.trace.build(),
+            spec.n_frames,
+            strict=spec.strict,
+            workload=spec.workload,
+        )
+        return RunReport(
+            "multi",
+            spec,
+            ms.per_client,
+            meta={
+                "allocation": fleet.allocation,
+                "server_jobs": ms.server_jobs,
+                "server_utilization": ms.server_utilization,
+                "grants": sched.audit.grants,
+                "denials": sched.audit.denials,
+            },
+        )
 
+    # -- mode: online controller with estimated bandwidth ------------------
     def run_online(self) -> RunReport:
-        raise NotImplementedError(_NOT_PORTED.format(mode="run_online", item="3 (run_sim/run_multi/run_online)"))
+        """Drive :class:`OnlineController` over the trace: the policy sees
+        only the EWMA estimator's belief (fed back from the uploads the plans
+        actually perform), while the audit uses the *true* trace — offload
+        finish times are recomputed at real bandwidth, so an optimistic
+        estimate shows up as deadline misses, exactly as in deployment."""
+        spec = self.spec
+        if spec.workload.is_track:
+            raise ValueError(
+                "mode 'online' does not execute the tracking workload yet; "
+                "use run_sim/run_multi"
+            )
+        models = list(spec.models)
+        stream = spec.stream
+        trace = spec.trace.build()
+        gamma, deadline = stream.gamma, stream.deadline
+        controller = OnlineController(
+            models=models,
+            stream=stream,
+            policy=spec.policy,
+            estimator=BandwidthEstimator(init_bps=trace.at(0.0).bandwidth_bps),
+            device=self.device,
+        )
+        controller.estimator.observe_rtt(trace.at(0.0).rtt)
+        stats = StreamStats(frames_total=spec.n_frames, elapsed=spec.n_frames * gamma)
+        head = 0
+        net_free_abs = 0.0  # true-link serial occupancy
+        while head < spec.n_frames:
+            t0 = head * gamma
+            true_net = trace.at(t0)
+            wall = time.perf_counter()
+            plan = controller.next_plan(head)
+            stats.schedule_time += time.perf_counter() - wall
+            stats.schedule_calls += 1
+
+            horizon, bad = audit_round(
+                plan, gamma=gamma, deadline=deadline, strict=spec.strict, npu_only=True
+            )
+
+            def offload(d, m, *, t0=t0, true_net=true_net):
+                nonlocal net_free_abs
+                arrival_abs = t0 + d.frame * gamma
+                nbytes = stream.frame_bytes(d.resolution)
+                t_up = true_net.upload_time(nbytes)
+                start = max(net_free_abs, t0 + max(d.start, 0.0))
+                finish = start + t_up + true_net.rtt + m.t_server
+                net_free_abs = start + t_up
+                controller.report_upload(nbytes, t_up)
+                controller.report_rtt(true_net.rtt)
+                if finish <= arrival_abs + deadline + AUDIT_TOL:
+                    stats.frames_processed += 1
+                    stats.frames_offloaded += 1
+                    stats.accuracy_sum += m.accuracy(d.resolution, where="server")
+                else:
+                    stats.frames_missed_deadline += 1
+
+            apply_round(
+                stats,
+                plan,
+                models=models,
+                stream=stream,
+                head=head,
+                n_frames=spec.n_frames,
+                horizon=horizon,
+                bad_frames=bad,
+                on_offload=offload,
+            )
+            head += horizon
+        return RunReport(
+            "online",
+            spec,
+            [stats],
+            meta={
+                "rounds": controller.rounds,
+                "estimated_bps": controller.estimator.state().bandwidth_bps,
+            },
+        )
 
     def run_sweep(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(mode="run_sweep", item="5 (jax_sched/bucketing/sim_batch/run_sweep)"))
+        raise NotImplementedError(_SWEEP_NOT_PORTED)
 
     # -- mode: real models behind the controller ---------------------------
     def run_serving(self) -> RunReport:
@@ -415,3 +553,67 @@ class Session:
             schedule_calls=int(summary.get("scheduler_rounds", 0)),
         )
         return RunReport("serving", self.spec, [stats], meta=summary)
+
+
+# ---------------------------------------------------------------------------
+# CLI:  python -m repro_torch.session spec.json [--mode sim|multi|online|serving]
+# Malformed specs (bad JSON, unknown policy, invalid parameters) exit 2 with
+# a one-line ``error: ...`` on stderr — never a traceback.
+# ---------------------------------------------------------------------------
+
+_EXAMPLE = ScenarioSpec(
+    policy=PolicySpec("max_accuracy"),
+    n_frames=90,
+    trace=TraceSpec(mbps=2.5),
+    label="example",
+)
+
+
+def _read(path: str) -> str:
+    return sys.stdin.read() if path == "-" else open(path).read()
+
+
+def _fail(exc: Exception) -> int:
+    print(f"error: {exc}", file=sys.stderr)
+    return 2
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["sweep"]:
+        return _fail(NotImplementedError(_SWEEP_NOT_PORTED))
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.session",
+        description="Run a declarative FastVA scenario (ScenarioSpec JSON).",
+    )
+    ap.add_argument("spec", nargs="?", help="path to ScenarioSpec JSON, or '-' for stdin")
+    ap.add_argument("--mode", default="sim", choices=Session.MODES)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--list-policies", action="store_true", help="list registered policies and exit")
+    ap.add_argument("--example", action="store_true", help="print an example spec JSON and exit")
+    args = ap.parse_args(argv)
+
+    if args.list_policies:
+        for name in available_policies():
+            print(name)
+        return 0
+    if args.example:
+        print(json.dumps(_EXAMPLE.to_json(), indent=2))
+        return 0
+    if not args.spec:
+        ap.error("need a spec path (or --list-policies / --example)")
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as exc:  # no card, or an unknown device
+        return _fail(exc)
+    try:
+        spec = ScenarioSpec.from_json(_read(args.spec))
+        report = Session(spec, device=device).run(args.mode)
+    except (OSError, TypeError, ValueError) as exc:
+        return _fail(exc)
+    print(json.dumps(report.to_json(), indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,13 +16,18 @@ Tolerances and why:
     at chip_smoke.py's shapes;
   * the smoke ViT through the kernel against the same forward with the plain
     attention: logits within 2% of the logit scale (the kernel keeps q.k in
-    f32 where the plain version rounds it to bf16).
+    f32 where the plain version rounds it to bf16);
+  * the ``jax_*`` planners' float32 DPs (``core/jax_sched``) on the card
+    against the same call on the CPU: exact.  Every op rounds as IEEE
+    float32/float64 on both (scalars are device tensors, fused roundings
+    are emulated), so the DP values, picks and audited stats are equal.
 """
 from __future__ import annotations
 
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +35,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, a
 from chip_smoke import FLASH_SHAPES, FLASH_TOL, GEMM_SHAPES, MISALIGNED, at_offset, own_fan_in  # noqa: E402
 
 from repro_torch import arch as A
-from repro_torch import configs, quant
+from repro_torch import configs, quant, session
+from repro_torch.core import jax_sched, profiles
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
@@ -175,3 +181,65 @@ def test_vit_forward_through_flash_kernel_equals_plain_attention(cuda_device, mo
     with torch.no_grad():
         plain = A.classifier_forward(arch, params, {}, x, train=False)[0]
     assert float((out - plain).abs().max()) <= 0.02 * float(plain.abs().max())
+
+
+def _dp_case(seed: int):
+    """1-3 seeded local models (a twin of model 0 on every third seed, so
+    models tie) and one window's DP arguments."""
+    rng = np.random.default_rng(seed)
+    models = []
+    for j in range(int(rng.integers(1, 4))):
+        acc = float(np.round(rng.uniform(0.3, 0.9), 3))
+        models.append(profiles.profile_ms(f"m{j}", t_npu_ms=float(rng.uniform(8.0, 150.0)), t_server_ms=50.0,
+                                          acc_server={224: acc + 0.05}, acc_npu={224: acc}))
+    if seed % 3 == 0:
+        models.append(models[0])
+    n = int(rng.integers(1, 12))
+    gamma = float(rng.choice([1 / 30, 1 / 15, 0.1]))
+    kw = dict(n_frames=n, gamma=gamma, deadline=float(rng.choice([0.1, 0.2, 0.3])),
+              npu_free=float(rng.uniform(0.0, 0.2)) if seed % 2 else 0.0,
+              first_arrival=float(rng.uniform(0.0, 0.1)) if seed % 3 == 2 else 0.0)
+    return models, kw, dict(alpha=float(rng.choice([1.0, 50.0, 200.0])), window=n * gamma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(16))
+def test_jax_sched_dps_on_card_equal_cpu(cuda_device, seed):
+    models, kw, ukw = _dp_case(seed)
+    for dp, extra in ((jax_sched.local_accuracy_dp_jax, {}), (jax_sched.local_utility_dp_jax, ukw)):
+        assert dp(models, **kw, **extra, device=cuda_device) == dp(models, **kw, **extra, device="cpu"), dp.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params", [("jax_accuracy", {}), ("jax_utility", {"alpha": 200.0})])
+def test_jax_planners_run_sim_on_card_equal_cpu(cuda_device, name, params):
+    spec = session.ScenarioSpec(policy={"name": name, "params": params}, n_frames=180,
+                                trace=session.TraceSpec(kind="piecewise", points=((0.0, 3.5), (1.0, 0.8))))
+    card, cpu = (session.Session(spec, device=d).run_sim().stats for d in (cuda_device, "cpu"))
+    keys = ("frames_processed", "frames_missed_deadline", "frames_offloaded", "schedule_calls", "accuracy_sum")
+    assert [getattr(card, k) for k in keys] == [getattr(cpu, k) for k in keys]
+
+
+@pytest.mark.cuda
+def test_jax_sched_frame_loops_never_wait_for_the_card(cuda_device, monkeypatch):
+    """Between the one copy of a round's inputs to the card and the one copy
+    of its choices back, nothing synchronizes with the host: CUDA's sync
+    debug mode raises on any other synchronizing call."""
+    def unchecked(fn):
+        def call(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    monkeypatch.setattr(jax_sched, "_to_device", unchecked(jax_sched._to_device))
+    monkeypatch.setattr(jax_sched, "_to_host", unchecked(jax_sched._to_host))
+    models, kw, ukw = _dp_case(5)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        jax_sched.local_accuracy_dp_jax(models, **kw, device=cuda_device)
+        jax_sched.local_utility_dp_jax(models, **kw, **ukw, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
