@@ -46,7 +46,17 @@ Phases (each raises on failure, so any failure exits non-zero):
                   — every result equal to SIM_GOLDENS, the reference's
                   numbers; then every classify policy on the profiles
                   serve_full measured on the card; planning time per round
-  9. report       {"kernels": [...]} line, then the contract's last line
+  9. sweep        Session.run_sweep through the lane-batched engine
+                  (core/sim_batch) on device="cuda" for the six batched
+                  policies: 20-point golden grids (the max_* policies also
+                  under a piecewise trace, the track policies on their own
+                  grid) against SWEEP_GOLDENS, the reference's numbers; then
+                  1000 points x 900 frames a policy, twice, every 10th point
+                  re-run on the host CPU bit for bit; max_utility over
+                  10,000 points chunked against unchunked; the per-point
+                  loop on the card at 10 and 100 points; ms per point,
+                  groups, rounds, host reads per round and peak card memory
+ 10. report       {"kernels": [...]} line, then the contract's last line
 
 Every main-path phase (serve_full, vit_full, serving) sets both kernels'
 launch counts to 0 just before it runs and reads them just after; while
@@ -148,6 +158,44 @@ DP_FRAMES = 900  # the paper's stream length: 30 s at 30 fps
 DP_POLICIES = ("max_accuracy", "max_utility", "jax_accuracy", "jax_utility")
 ALLOCATIONS = ("weighted_fair", "priority", "fifo")
 CARD_FRAMES = 300  # the card-profiled runs (brute_force at GOLD_FRAMES)
+
+# The sweep phase: Session.run_sweep through the lane-batched engine
+# (core/sim_batch) for every batched policy, held against the reference's
+# numbers (SWEEP_GOLDENS; tests/test_torch_sweep_goldens.py holds the table
+# against the reference package), then at full width against itself on the
+# CPU.  Base params and the parameter axis of each policy's full-width grid:
+SWEEP_PARAMS = {
+    "jax_accuracy": ({}, {"grid": [1e-3, 2e-3]}),
+    "jax_utility": ({"alpha": 200.0}, {"alpha": [50.0, 200.0]}),
+    "max_accuracy": ({}, {"grid": [1e-3, 2e-3]}),
+    "max_utility": ({"alpha": 200.0}, {"alpha": [50.0, 200.0]}),
+    "track_accuracy": ({"k_max": 5}, {"k_max": [4, 8]}),
+    "track_fixed": ({"k": 3}, {"k": [2, 4]}),
+}
+NET_POLICIES = ("max_accuracy", "max_utility")  # integer stats exact, accuracy within AUDIT_TOL
+SWEEP_PIECEWISE = [[0.0, 3.0], [0.3, 0.8], [0.9, 6.0]]  # tests/test_sim_batch.py:59-61, rtt 60 ms
+# tests/test_tracking.py:205-228: the track policies' run_sweep grid and base spec
+TRACK_GRID = {"bandwidth_mbps": [0.5, 3.0, 9.0], "deadline_ms": [100.0, 200.0]}
+TRACK_BASE = {"trace": {"kind": "constant", "mbps": 2.5, "rtt_ms": 80.0},
+              "workload": {"kind": "track", "decay": 0.2, "density": 1.5}}
+# Full width: 1000 points a policy, over 900 frames (30 s at 30 fps, the
+# paper's stream) on Table II's profiles: bandwidth 0.5-6 Mbps (constant
+# traces) or rtt 20-200 ms (under SWEEP_TRACE) x deadline x fps x the param
+# axis, 500 points each.
+SWEEP_FRAMES = 900
+SWEEP_BW = [0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
+SWEEP_RTT = [20.0, 40.0, 60.0, 80.0, 100.0, 120.0, 140.0, 160.0, 180.0, 200.0]
+SWEEP_DL = [100.0, 150.0, 200.0, 250.0, 350.0]
+SWEEP_FPS = [10.0, 15.0, 24.0, 30.0, 60.0]
+SWEEP_TRACE = {"kind": "piecewise", "rtt_ms": 60.0,  # steps through the 30 s stream
+               "points": [[0.0, 3.0], [5.0, 0.8], [10.0, 6.0], [15.0, 1.5], [20.0, 4.0], [25.0, 0.5]]}
+CPU_CHECK_EVERY = 10  # the host CPU re-runs every 10th full-width point: 100 a policy
+CHUNK_POINTS, CHUNK_SIZE = 10_000, 2500  # max_utility at 24 frames, chunked against unchunked
+PROFILE_FRAMES = 300  # the profiled group's stream (eager rounds take ~20 ms each)
+REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 100 points
+    10: {"bandwidth_mbps": [1.0, 3.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
+    100: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [24.0, 30.0]},
+}
 
 
 def log(msg: str) -> None:
@@ -935,6 +983,212 @@ def phase_sim(torch, core, session, scenariogen, t_ms, smi: str) -> None:
     log(f"sim: card profiles, planning ms per round ({smi}): {planning_ms(card)}")
 
 
+# ---------------------------------------------------------------------------
+# 9. sweep: Session.run_sweep through the lane-batched engine
+# ---------------------------------------------------------------------------
+
+
+def sweep_spec(name: str, n_frames: int, **kw) -> dict:
+    spec = {"policy": {"name": name, "params": SWEEP_PARAMS[name][0]}, "n_frames": n_frames, **kw}
+    if name in TRACK_POLICIES:
+        spec["workload"] = {"kind": "track"}
+    return spec
+
+
+def sweep_cases() -> dict:
+    """Case name -> (ScenarioSpec JSON, SweepGrid JSON): a 20-point
+    sub-grid of tests/test_sim_batch.py::_golden_grid at 24 frames (2
+    bandwidths x 5 deadlines, 10 ms the skip path, x 2 fps), for the max_*
+    policies also under the reference's piecewise trace (its rtt axis in
+    place of bandwidth), and the track policies' grid of
+    tests/test_tracking.py."""
+    deadlines = [10.0, 100.0, 150.0, 200.0, 350.0]
+    cases = {}
+    for name in SWEEP_PARAMS:
+        if name in TRACK_POLICIES:
+            cases[f"{name}/track"] = ({**sweep_spec(name, GOLD_FRAMES), **TRACK_BASE}, TRACK_GRID)
+            continue
+        cases[f"{name}/constant"] = (sweep_spec(name, GOLD_FRAMES),
+                                     {"bandwidth_mbps": [1.0, 2.5], "deadline_ms": deadlines, "fps": [24.0, 50.0]})
+        if name in NET_POLICIES:
+            trace = {"kind": "piecewise", "points": SWEEP_PIECEWISE, "rtt_ms": 60.0}
+            cases[f"{name}/piecewise"] = (sweep_spec(name, GOLD_FRAMES, trace=trace),
+                                          {"rtt_ms": [40.0, 100.0], "deadline_ms": deadlines, "fps": [24.0, 50.0]})
+    return cases
+
+
+def stats_rows(stats) -> list:
+    """Per stream: frames total, processed, missed, offloaded, planner
+    calls, accuracy sum, NPU busy seconds."""
+    return [[s.frames_total, s.frames_processed, s.frames_missed_deadline, s.frames_offloaded, s.schedule_calls,
+             s.accuracy_sum, s.npu_busy_s] for s in stats]
+
+
+def sweep_rows(report) -> list:
+    """Per point of a SweepReport, the first six of :func:`stats_rows` (the
+    per-point loop leaves ``npu_busy_s`` at 0)."""
+    return [row[:6] for row in stats_rows(s for p in report.points for s in p.streams)]
+
+
+def sweep_table(session, run) -> dict:
+    """Every case of :func:`sweep_cases` through ``run(spec, grid)``."""
+    return {name: sweep_rows(run(session.ScenarioSpec.from_json(spec), session.SweepGrid.from_json(grid)))
+            for name, (spec, grid) in sweep_cases().items()}
+
+
+def sweep_agree(name: str, got: list, want: list, tol: float) -> bool:
+    """The reference's contract: every field exact, but for the max_*
+    policies an accuracy sum within ``tol`` (AUDIT_TOL)."""
+    if len(got) != len(want):
+        return False
+    acc_tol = tol if name.split("/")[0] in NET_POLICIES else 0.0
+    return all(g[:5] == w[:5] and abs(g[5] - w[5]) <= acc_tol for g, w in zip(got, want))
+
+
+def full_grids(name: str) -> list[tuple[dict, dict]]:
+    """The policy's 1000 full-width points as two (spec, grid) halves:
+    constant traces (a bandwidth axis), then SWEEP_TRACE (an rtt axis)."""
+    axis = SWEEP_PARAMS[name][1]
+    return [(sweep_spec(name, SWEEP_FRAMES),
+             {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": SWEEP_FPS, "params": axis}),
+            (sweep_spec(name, SWEEP_FRAMES, trace=SWEEP_TRACE),
+             {"rtt_ms": SWEEP_RTT, "deadline_ms": SWEEP_DL, "fps": SWEEP_FPS, "params": axis})]
+
+
+def batch_scenarios(session, core, spec: dict, grid: dict, every: int = 1, limit: int | None = None):
+    """The engine's scenarios for the grid's points (every ``every``-th,
+    at most ``limit``), as run_sweep builds them."""
+    base = session.ScenarioSpec.from_json(spec)
+    pts = session.SweepGrid.from_json(grid).points()[::every][:limit]
+    specs = [session._apply_point(base, p) for p in pts]
+    return base, [core.sim_batch.BatchScenario(stream=s.stream, n_frames=s.n_frames, params=s.policy.params,
+                                               rtt=s.trace.rtt_s, bw_segments=s.trace.segments(),
+                                               workload=s.workload) for s in specs]
+
+
+def timed(torch, fn):
+    """(result, wall seconds) of ``fn()`` ended by a synchronize."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sweep(torch, core, session, smi: str) -> None:
+    """The six batched policies through ``Session.run_sweep`` on the card:
+    SWEEP_GOLDENS, full width against the host CPU, chunking, the per-point
+    loop for comparison, and one group's rounds profiled."""
+    t_phase = time.perf_counter()
+    tol = core.audit.AUDIT_TOL
+    batched = lambda spec, grid: session.Session(spec, device=DEVICE).run_sweep(grid, backend="batched")  # noqa: E731
+    table = sweep_table(session, batched)
+    bad = sorted(n for n in SWEEP_GOLDENS if not sweep_agree(n, table.get(n, []), SWEEP_GOLDENS[n], tol))
+    for name in bad:
+        log(f"sweep: {name}: port {table.get(name)} reference {SWEEP_GOLDENS[name]}")
+    check(table.keys() == SWEEP_GOLDENS.keys(), f"sweep cases {sorted(table)} != SWEEP_GOLDENS")
+    check(not bad, f"sweep results differ from the reference's at {bad}")
+    bit_equal = sum(g == w for n in table for g, w in zip(table[n], SWEEP_GOLDENS[n]))
+    log(f"sweep: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
+        f"contract on device={DEVICE} ({bit_equal} bit-equal in every field)")
+
+    for name in SWEEP_PARAMS:
+        grids = full_grids(name)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        first, s1 = timed(torch, lambda: [batched(session.ScenarioSpec.from_json(sp), session.SweepGrid.from_json(g))
+                                          for sp, g in grids])
+        second, s2 = timed(torch, lambda: [batched(session.ScenarioSpec.from_json(sp), session.SweepGrid.from_json(g))
+                                           for sp, g in grids])
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20 if DEVICE == "cuda" else float("nan")
+        n = sum(len(r.points) for r in first)
+        (param_values,) = SWEEP_PARAMS[name][1].values()
+        check(n == 2 * len(SWEEP_BW) * len(SWEEP_DL) * len(SWEEP_FPS) * len(param_values),
+              f"{name}: {n} full-width points")
+        check(sweep_rows(first[0]) + sweep_rows(first[1]) == sweep_rows(second[0]) + sweep_rows(second[1]),
+              f"{name}: two runs of the same grid differ")
+        groups = [g for r in second for g in r.meta["groups"]]
+        rounds = [g["rounds"] for g in groups]
+        reads = sum(g["host_reads"] for g in groups)
+        # The host CPU re-runs every CPU_CHECK_EVERY-th point: bit for bit.
+        cpu_s, n_cpu, agree = 0.0, 0, 0
+        for (spec, grid), rep in zip(grids, second):
+            base, scens = batch_scenarios(session, core, spec, grid, every=CPU_CHECK_EVERY)
+            cpu, s = timed(torch, lambda: core.sim_batch.simulate_batch(name, list(base.models), scens, device="cpu"))
+            card = [p.stats for p in rep.points][::CPU_CHECK_EVERY]
+            cpu_s, n_cpu = cpu_s + s, n_cpu + len(cpu)
+            agree += sum(a == b for a, b in zip(stats_rows(card), stats_rows(cpu)))
+        check(agree == n_cpu, f"{name}: the card and the host CPU differ at {n_cpu - agree} of {n_cpu} points")
+        # The per-point loop (backend="reference") on the card, for comparison.
+        ref_ms = {}
+        for n_ref, grid in REFERENCE_GRIDS.items():
+            if name.startswith("jax_") and n_ref > min(REFERENCE_GRIDS):
+                continue  # their per-round planners take seconds a point on the card (phase 8)
+            spec = session.ScenarioSpec.from_json(sweep_spec(name, SWEEP_FRAMES))
+            grid = session.SweepGrid.from_json(grid)
+            loop, s = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(grid, backend="reference"))
+            ref_ms[n_ref] = 1e3 * s / len(grid)
+            check(sweep_agree(name, sweep_rows(batched(spec, grid)), sweep_rows(loop), tol),
+                  f"{name}: the batched engine differs from the per-point loop")
+        log(f"sweep: {name}: {n} points x {SWEEP_FRAMES} frames on device={DEVICE}: {1e3 * s1 / n:.3f} ms/point "
+            f"(first call), {1e3 * s2 / n:.3f} (second); host CPU {1e3 * cpu_s / n_cpu:.3f} ms/point over {n_cpu} "
+            f"points, bit-equal; per-point loop on device={DEVICE} "
+            + ", ".join(f"{k} points {v:.3f} ms/point" for k, v in ref_ms.items())
+            + f"; {len(groups)} groups, rounds per group mean {sum(rounds) / len(rounds):.1f} max {max(rounds)}, "
+            f"host reads per round {(reads - len(groups)) / sum(rounds):.3f} (+1 per group), peak card memory "
+            f"{peak:.1f} MiB above what earlier phases hold")
+
+    # Chunking is result-invariant: max_utility over 10,000 points at 24 frames.
+    spec = session.ScenarioSpec.from_json(sweep_spec("max_utility", GOLD_FRAMES))
+    side = round(CHUNK_POINTS ** 0.25)
+    grid = session.SweepGrid(bandwidth_mbps=tuple(0.5 + 0.55 * i for i in range(side)),
+                             deadline_ms=tuple(100.0 + 25.0 * i for i in range(side)),
+                             fps=tuple(10.0 + 5.0 * i for i in range(side)),
+                             params={"alpha": tuple(20.0 + 20.0 * i for i in range(side))})
+    check(len(grid) == CHUNK_POINTS, f"chunk grid has {len(grid)} points")
+    whole, s_whole = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(grid, keep_points=False))
+    chunked, s_chunk = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(
+        grid, chunk_size=CHUNK_SIZE, keep_points=False))
+    check(whole.meta["summary"] == chunked.meta["summary"] and chunked.meta["chunks"] == CHUNK_POINTS // CHUNK_SIZE,
+          "chunked and unchunked summaries differ")
+    log(f"sweep: max_utility over {CHUNK_POINTS} points x {GOLD_FRAMES} frames: summary unchunked == "
+        f"{chunked.meta['chunks']} chunks of {CHUNK_SIZE} ({1e3 * s_whole / CHUNK_POINTS:.3f} / "
+        f"{1e3 * s_chunk / CHUNK_POINTS:.3f} ms/point); {json.dumps(chunked.meta['summary'])}")
+    if DEVICE == "cuda":
+        profile_round(torch, core, session, smi)
+    log(f"sweep: phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def profile_round(torch, core, session, smi: str) -> None:
+    """Where a round's time goes: one max_accuracy shape group (fps 30,
+    deadline 350 ms: W = 10, 20 lanes) over PROFILE_FRAMES frames, its
+    rounds replayed as CUDA graphs and issued eagerly: wall time, and the
+    device's busy time from torch.profiler in a second run of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, grid = full_grids("max_accuracy")[0]
+    base, scens = batch_scenarios(session, core, {**spec, "n_frames": PROFILE_FRAMES}, grid)
+    scens = [s for s in scens if s.stream.fps == 30.0 and abs(s.stream.deadline - 0.35) < 1e-9]
+    run = lambda groups=None: core.sim_batch.simulate_batch(  # noqa: E731
+        "max_accuracy", list(base.models), scens, device=DEVICE, groups=groups)
+    eager = mock.patch.object(core.sim_batch, "_graphed", lambda step, state: (step, state))
+    for label, mode in (("graphed", contextlib.nullcontext()), ("eager", eager)):
+        with mode:
+            groups = []
+            stats, wall = timed(torch, lambda: run(groups))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        (g,) = groups
+        log(f"sweep: profile, max_accuracy group {g['key']} of {g['lanes']} lanes over {PROFILE_FRAMES} frames, "
+            f"rounds {label}: {g['rounds']} rounds in {1e3 * wall:.1f} ms ({1e3 * wall / g['rounds']:.3f} ms a "
+            f"round); device busy {busy:.1f} ms, {100 * busy / (1e3 * wall):.1f}% of the wall ({smi})")
+
+
 # The reference's numbers for every case of sim_cases(), computed by
 # ``repro`` (tests/test_torch_sim.py::test_sim_goldens_equal_reference checks
 # this table against it): per stream [frames total, processed, missed,
@@ -987,6 +1241,73 @@ SIM_GOLDENS = {'sim/max_accuracy': {'streams': [[24, 24, 0, 2, 5, 11.57999999999
                             'estimated_bps': 3150000.0}}
 
 
+# The reference's numbers for every case of sweep_cases(), computed by
+# ``repro``'s per-point loop (run_sweep(backend="reference"); its batched
+# engine gives the same table): per point [frames total, processed, missed,
+# offloaded, planner calls, accuracy sum].  tests/test_torch_sweep_goldens.py
+# checks this table against the reference.
+SWEEP_GOLDENS = {'jax_accuracy/constant': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                           [24, 24, 0, 0, 5, 10.280000000000001], [24, 24, 0, 0, 8, 12.039999999999996],
+                           [24, 24, 0, 0, 4, 10.390000000000002], [24, 24, 0, 0, 6, 12.149999999999995],
+                           [24, 24, 0, 0, 3, 10.610000000000001], [24, 24, 0, 0, 3, 12.479999999999993],
+                           [24, 24, 0, 0, 2, 10.939999999999998], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                           [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.280000000000001],
+                           [24, 24, 0, 0, 8, 12.039999999999996], [24, 24, 0, 0, 4, 10.390000000000002],
+                           [24, 24, 0, 0, 6, 12.149999999999995], [24, 24, 0, 0, 3, 10.610000000000001],
+                           [24, 24, 0, 0, 3, 12.479999999999993], [24, 24, 0, 0, 2, 10.939999999999998]],
+ 'jax_utility/constant': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                          [24, 24, 0, 0, 5, 10.280000000000001], [24, 22, 0, 0, 8, 11.219999999999995],
+                          [24, 22, 0, 0, 4, 9.680000000000001], [24, 23, 0, 0, 6, 11.739999999999995],
+                          [24, 15, 0, 0, 3, 7.359999999999998], [24, 24, 0, 0, 3, 12.479999999999993],
+                          [24, 20, 0, 0, 2, 9.629999999999999], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                          [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.280000000000001],
+                          [24, 22, 0, 0, 8, 11.219999999999995], [24, 22, 0, 0, 4, 9.680000000000001],
+                          [24, 23, 0, 0, 6, 11.739999999999995], [24, 15, 0, 0, 3, 7.359999999999998],
+                          [24, 24, 0, 0, 3, 12.479999999999993], [24, 20, 0, 0, 2, 9.629999999999999]],
+ 'max_accuracy/constant': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                           [24, 24, 0, 0, 5, 10.170000000000002], [24, 24, 0, 0, 8, 12.039999999999996],
+                           [24, 24, 0, 0, 4, 10.390000000000002], [24, 24, 0, 0, 6, 12.149999999999995],
+                           [24, 24, 0, 0, 3, 10.500000000000002], [24, 24, 0, 0, 3, 12.479999999999993],
+                           [24, 24, 0, 4, 4, 11.18], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                           [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.170000000000002],
+                           [24, 24, 0, 0, 8, 12.039999999999996], [24, 24, 0, 0, 4, 10.390000000000002],
+                           [24, 24, 0, 0, 6, 12.149999999999995], [24, 24, 0, 5, 5, 10.670000000000002],
+                           [24, 24, 0, 6, 6, 13.139999999999997], [24, 24, 0, 6, 6, 11.959999999999999]],
+ 'max_accuracy/piecewise': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                            [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                            [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.170000000000002],
+                            [24, 24, 0, 0, 5, 10.170000000000002], [24, 24, 0, 0, 8, 12.039999999999996],
+                            [24, 24, 0, 0, 8, 12.039999999999996], [24, 24, 0, 6, 8, 10.74],
+                            [24, 24, 0, 0, 4, 10.390000000000002], [24, 24, 0, 4, 8, 12.529999999999994],
+                            [24, 24, 0, 0, 6, 12.149999999999995], [24, 24, 0, 4, 5, 11.210000000000003],
+                            [24, 24, 0, 3, 5, 10.580000000000002], [24, 24, 0, 2, 4, 12.779999999999994],
+                            [24, 24, 0, 2, 4, 12.699999999999994], [24, 24, 0, 5, 5, 11.7], [24, 24, 0, 5, 5, 11.7]],
+ 'max_utility/constant': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                          [24, 24, 0, 0, 5, 10.280000000000001], [24, 22, 0, 0, 8, 11.219999999999995],
+                          [24, 22, 0, 0, 4, 9.680000000000001], [24, 23, 0, 0, 6, 11.739999999999995],
+                          [24, 19, 0, 1, 3, 8.57], [24, 24, 0, 0, 3, 12.479999999999993],
+                          [24, 21, 0, 2, 2, 10.059999999999999], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                          [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.280000000000001],
+                          [24, 22, 0, 0, 8, 11.219999999999995], [24, 24, 0, 3, 4, 10.14],
+                          [24, 24, 0, 1, 6, 12.139999999999995], [24, 22, 0, 2, 3, 9.88],
+                          [24, 24, 0, 3, 3, 12.809999999999995], [24, 21, 0, 2, 2, 10.479999999999999]],
+ 'max_utility/piecewise': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0, 24, 0.0],
+                           [24, 0, 0, 0, 24, 0.0], [24, 24, 0, 0, 12, 11.819999999999997],
+                           [24, 24, 0, 0, 12, 11.819999999999997], [24, 24, 0, 0, 5, 10.280000000000001],
+                           [24, 24, 0, 0, 5, 10.280000000000001], [24, 22, 0, 0, 8, 11.219999999999995],
+                           [24, 22, 0, 0, 8, 11.219999999999995], [24, 24, 0, 4, 4, 10.32],
+                           [24, 24, 0, 2, 4, 10.260000000000002], [24, 23, 0, 2, 6, 12.039999999999994],
+                           [24, 23, 0, 0, 6, 11.739999999999995], [24, 23, 0, 3, 3, 10.290000000000001],
+                           [24, 19, 0, 1, 3, 8.77], [24, 24, 0, 1, 3, 12.629999999999994],
+                           [24, 24, 0, 1, 3, 12.589999999999993], [24, 21, 0, 2, 2, 10.309999999999999],
+                           [24, 21, 0, 2, 2, 10.269999999999998]],
+ 'track_accuracy/track': [[24, 24, 0, 0, 12, 10.704980537471583], [24, 24, 0, 0, 12, 10.704980537471583],
+                          [24, 24, 0, 0, 12, 10.704980537471583], [24, 24, 0, 0, 12, 10.704980537471583],
+                          [24, 24, 0, 0, 12, 10.704980537471583], [24, 24, 0, 12, 12, 12.969495651167492]],
+ 'track_fixed/track': [[24, 24, 0, 0, 8, 9.266573691647721], [24, 24, 0, 0, 8, 9.266573691647721],
+                       [24, 24, 0, 0, 8, 9.266573691647721], [24, 24, 0, 0, 8, 9.266573691647721],
+                       [24, 24, 0, 0, 8, 9.266573691647721], [24, 24, 0, 8, 8, 11.226810434111659]]}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1031,6 +1352,11 @@ def main() -> int:
     sim_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
     log(f"sim: kernel launches (int8_matmul, flash_attention) {sim_launches}")
     check(sim_launches == (0, 0), "the simulators launched a model kernel")
+    torch.cuda.empty_cache()
+    phase_sweep(torch, core, session, smi)
+    sweep_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+    log(f"sweep: kernel launches (int8_matmul, flash_attention) {sweep_launches}")
+    check(sweep_launches == (0, 0), "the sweep engine launched a model kernel")
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + serving_int8

@@ -17,17 +17,21 @@ Public surface:
   simulator.simulate_multi    — N streams, shared fluid uplink + server queue
   edge_server                 — multi-tenant admission/bandwidth scheduler
   jax_sched                   — both local DPs as float32 tensor programs on
-                                a device (policies jax_accuracy/jax_utility)
+                                a device (policies jax_accuracy/jax_utility),
+                                their lane-batched forms and float64 twins
+  sim_batch.simulate_batch    — scenario grids lane-batched on a device
+  bucketing                   — the sweep engine's shape groups
   controller.OnlineController — streaming controller w/ bandwidth estimation
 
-The reference's vectorized sweep engines (``sim_batch``,
-``sim_multi_batch``) are not ported yet.  Declarative scenario running
+The reference's fleet and online sweep engines (``sim_multi_batch``,
+``sim_online_batch``) are not ported yet.  Declarative scenario running
 (ScenarioSpec/Session) lives one level up in ``repro_torch.session``.
 """
 from . import (  # noqa: F401
     audit,
     baselines,
     brute_force,
+    bucketing,
     controller,
     edge_server,
     jax_sched,
@@ -36,6 +40,7 @@ from . import (  # noqa: F401
     profiles,
     registry,
     schedule,
+    sim_batch,
     simulator,
     tracking,
 )

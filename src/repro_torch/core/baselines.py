@@ -24,6 +24,7 @@ _ALPHA = Param.number("alpha", None, nullable=True, doc="None = accuracy mode; f
     "offload",
     params=(_ALPHA,),
     doc="§VI.C Offload baseline: always ship to the edge, resize to keep up.",
+    batched_multi=True,
 )
 def offload_plan_round(
     models: Sequence[ModelProfile],

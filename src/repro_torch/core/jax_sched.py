@@ -11,19 +11,19 @@ The module keeps the reference's name, and its two policies keep
 theirs (``jax_accuracy``, ``jax_utility``): they are part of the
 ``ScenarioSpec`` JSON schema, so one spec file runs in either package.
 
-Each round is a Python loop over the window's frames of tensor ops on
-``[J, nbins]`` / ``[J * width]`` (``J`` local models) on ``device``, with
-no host synchronization inside the loop; the per-frame choice/parent rows
-are packed into one tensor and copied to the host once, for the backtrack.
+Both DPs carry a leading lane axis ``B``: the sweep engine
+(:mod:`repro_torch.core.sim_batch`) runs a group of scenarios at once, and
+one stream is one lane.  A DP is a Python loop over the window's frames of
+tensor ops on ``device``, with no host synchronization inside the loop;
+frames past a lane's ``n_active`` pass through.  A one-stream round copies
+its inputs to the device once and its choice/parent rows back once, for the
+backtrack.
 
 Every quantity is float32, as in the reference, and every operation is
 chosen to round exactly as the reference's does:
-  * scalars (gamma, deadline, alpha, window, ...) are float32 0-dim tensors
-    on ``device`` — a division by a Python number may be lowered to a
+  * scalars (gamma, deadline, alpha, window, ...) are float32 tensors on
+    ``device`` — a division by a Python number may be lowered to a
     multiply by its reciprocal on the card, one ulp off;
-  * per-frame scalars (``arrival``, the deadline bound) are computed in
-    float32 on the host, as the reference computes them in f32, and reach
-    the kernels as arguments (exact: they are float32 values);
   * where the reference's XLA CPU backend fuses a multiply into the add
     that consumes it (``arrival = first_arrival + k * gamma`` and the
     utility's ``mean_term``), the port rounds once too (:func:`_fma32`):
@@ -33,6 +33,13 @@ chosen to round exactly as the reference's does:
   * the candidate sort ``lax.sort((t, -u, idx), num_keys=2, is_stable=True)``
     is two stable sorts, by ``-u`` then by ``t``; both keys have ``+ 0.0``
     added so ``-0.0`` and ``+0.0`` compare equal, as in ``lax.sort``.
+
+``_accuracy_dp64`` / ``_utility_dp64`` are the float64 twins of the paper's
+``max_accuracy`` / ``max_utility`` local phases, for the sweep engine's
+network-aware planners.  They keep every sequential tie-break of those
+Python references (first model wins ties, case A beats case B, stable
+``(t, -u)`` order, the last KEPT utility as the dominance bar) and round
+every product before the add it feeds, as Python does.
 """
 from __future__ import annotations
 
@@ -57,17 +64,18 @@ __all__ = [
 ]
 
 
-def _f32(x: float, device: torch.device) -> torch.Tensor:
-    """A float32 0-dim tensor on ``device``, made by a fill kernel (the
-    value rounds to nearest as ``np.float32`` rounds it), so no host copy
+def _lane(x: float, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A one-lane ``[1]`` tensor on ``device``, made by a fill kernel (a
+    float rounds to nearest as ``np.float32`` rounds it), so no host copy
     and no stream synchronization."""
-    return torch.full((), x, dtype=torch.float32, device=device)
+    return torch.full((1,), x, dtype=dtype, device=device)
 
 
-def _to_device(rows: Sequence[Sequence[float]], device: torch.device) -> torch.Tensor:
-    """Per-model inputs as one float64 ``[len(rows), J]`` tensor: one copy
-    to the device per round."""
-    return torch.tensor(rows, dtype=torch.float64).to(device)
+def _to_device(device: torch.device, *parts: Sequence[float]) -> list[torch.Tensor]:
+    """Several host vectors (model tables, frame bins) in one float64 copy
+    to the device per round, split back into one tensor each."""
+    flat = torch.from_numpy(np.concatenate([np.asarray(p, np.float64) for p in parts])).to(device)
+    return list(torch.split(flat, [len(p) for p in parts]))
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -117,63 +125,6 @@ def _to_host(*parts: torch.Tensor) -> list[np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def _accuracy_dp(
-    dur: torch.Tensor,  # [J] int64 duration bins (computed host-side in f64)
-    acc: torch.Tensor,  # [J] float32
-    arr_bins: Sequence[int],  # [n_frames]
-    dl_bins: Sequence[int],  # [n_frames]
-    start_bin: int,
-    *,
-    n_frames: int,
-    nbins: int,
-):
-    """H over the time grid, frame by frame; returns (H, choices, parents)
-    as device tensors ``[nbins]``, ``[n_frames, nbins]``, ``[n_frames, nbins]``."""
-    device = acc.device
-    neg = _f32(NEG, device)
-    neg_half = _f32(NEG / 2, device)
-    bins = torch.arange(nbins, dtype=torch.int64, device=device)
-    minus1 = torch.full((), -1, dtype=torch.int64, device=device)
-    d = dur[:, None]  # [J, 1]
-    a = acc[:, None]
-    src = bins[None, :] - d  # [J, nbins]
-    src_c = src.clamp(0, nbins - 1)
-
-    # (Built with where: assigning a Python number into a card tensor copies
-    # it from the host, which waits for the card.)
-    H = torch.where(bins == min(max(start_bin, 0), nbins - 1), _f32(0.0, device), neg)
-    choices, parents = [], []
-    for k in range(n_frames):
-        arr_bin, dl_bin = int(arr_bins[k]), int(dl_bins[k])
-        # prefix max (and its first argmax) of H over [0, arr_bin]
-        masked = torch.where(bins <= arr_bin, H, neg)
-        pre_arg = torch.argmax(masked)
-        pre_val = masked.gather(0, pre_arg.reshape(1)).reshape(())
-        # Case A: NPU free <= arrival, finish at arr_bin + d.
-        fbA = arr_bin + d  # [J, 1]
-        okA = (fbA <= dl_bin) & (fbA < nbins) & (pre_val > neg_half)
-        hitA = (bins[None, :] == fbA) & okA  # [J, nbins]
-        valA = torch.where(hitA, pre_val + a, neg)
-        parA = torch.where(hitA, pre_arg, minus1)
-        # Case B: free after arrival; target b takes from source b - d.
-        okB = (src > arr_bin) & (src >= 0) & (bins[None, :] <= dl_bin)
-        gathered = torch.where(okB, H[src_c], neg)
-        liveB = gathered > neg_half
-        valB = torch.where(liveB, gathered + a, neg)
-        parB = torch.where(valB > neg_half, src_c, minus1)
-        pickA = valA >= valB
-        vals = torch.where(pickA, valA, valB)
-        pars = torch.where(pickA, parA, parB)
-        best_j = torch.argmax(vals, dim=0)  # [nbins], first maximum
-        Hn = vals.gather(0, best_j[None])[0]
-        parent = pars.gather(0, best_j[None])[0]
-        live = Hn > neg_half
-        choices.append(torch.where(live, best_j, minus1))
-        parents.append(torch.where(live, parent, minus1))
-        H = Hn
-    return H, torch.stack(choices), torch.stack(parents)
-
-
 def local_accuracy_dp_jax(
     models: Sequence[ModelProfile],
     *,
@@ -195,19 +146,20 @@ def local_accuracy_dp_jax(
     horizon = first_arrival + (n_frames - 1) * gamma + deadline
     nbins = int(np.ceil(horizon / grid)) + 2
     # Bin arithmetic in f64 on the host — identical to max_accuracy.local_dp.
-    acc, dur = _to_device([
+    arrivals = first_arrival + np.arange(n_frames) * gamma
+    device = torch.device(device)
+    acc, dur, arr_bins, dl_bins = _to_device(
+        device,
         [m.acc_npu[max(m.acc_npu)] if m.acc_npu else 0.0 for _, m in local],
         [int(np.ceil(m.t_npu / grid)) for _, m in local],
-    ], torch.device(device))
-    acc, dur = acc.float(), dur.long()
-    arrivals = first_arrival + np.arange(n_frames) * gamma
-    arr_bins = np.ceil(arrivals / grid).astype(np.int32).tolist()
-    dl_bins = np.floor((arrivals + deadline) / grid).astype(np.int32).tolist()
-    start_bin = int(np.ceil(max(npu_free, 0.0) / grid))
-    H, choices, parents = _accuracy_dp(
-        dur, acc, arr_bins, dl_bins, start_bin, n_frames=n_frames, nbins=nbins
+        np.ceil(arrivals / grid).astype(np.int32),
+        np.floor((arrivals + deadline) / grid).astype(np.int32),
     )
-    H, choices, parents = _to_host(H, choices, parents)
+    start_bin = _lane(int(np.ceil(max(npu_free, 0.0) / grid)), device, torch.int64)
+    H, choices, parents = _accuracy_dp(
+        dur.long()[None], acc.float(), arr_bins.long()[None], dl_bins.long()[None], start_bin, nbins=nbins
+    )
+    H, choices, parents = _to_host(H[0], torch.stack(choices, 1)[0], torch.stack(parents, 1)[0])
     total = float(H.max())
     if total <= NEG / 2:
         return NEG, []
@@ -223,98 +175,6 @@ def local_accuracy_dp_jax(
 # ---------------------------------------------------------------------------
 # Max-Utility local phase (dominance-pruned triples) — fixed-width front
 # ---------------------------------------------------------------------------
-
-
-def _utility_dp(
-    t_npu: torch.Tensor,  # [J] float32
-    acc: torch.Tensor,  # [J] float32
-    *,
-    n_frames: int,
-    width: int,
-    gamma: float,
-    deadline: float,
-    alpha: float,
-    npu_free: float,
-    first_arrival: float,
-    window: float,
-):
-    """The fixed-width Pareto front, frame by frame; returns ((t, u, m,
-    valid), parents, actions) as device tensors, the last two
-    ``[n_frames, width]``.  Scalars are rounded to float32 here, as the
-    reference pins them."""
-    device = acc.device
-    J = t_npu.shape[0]
-    M = width * (J + 1)
-    neg = _f32(NEG, device)
-    big_t = _f32(BIG_T, device)
-    eps = _f32(1e-12, device)
-    one = _f32(1.0, device)
-    zero = _f32(0.0, device)
-    alpha_t = _f32(np.float32(alpha), device)
-    window_t = _f32(np.float32(window), device)
-    # Every frame's arrival and deadline bound, in float32 on the host; they
-    # reach the kernels as arguments, exactly (they are float32 values).
-    f32 = torch.float32
-    arrivals = _fma32(torch.arange(n_frames, dtype=f32), torch.tensor(gamma, dtype=f32),
-                      torch.tensor(first_arrival, dtype=f32))
-    limits = (arrivals + torch.tensor(deadline, dtype=f32)) + torch.tensor(1e-12, dtype=f32)
-
-    slots = torch.arange(width, dtype=torch.int64, device=device)
-    ranks = torch.arange(1, width + 1, dtype=torch.int64, device=device)
-    zero_i = torch.zeros((), dtype=torch.int64, device=device)
-    minus1 = torch.full((), -1, dtype=torch.int64, device=device)
-    cparent = torch.cat([slots, slots.repeat(J)])
-    caction = torch.cat([
-        torch.full((width,), -1, dtype=torch.int64, device=device),
-        torch.arange(J * width, dtype=torch.int64, device=device) // width,
-    ])
-    neg_head = neg.reshape(1)
-    alpha_acc = (alpha_t * acc)[:, None]  # [J, 1]
-    t_col = t_npu[:, None]
-
-    valid = slots == 0
-    t = torch.where(valid, _f32(max(np.float32(npu_free), np.float32(0.0)), device), big_t)
-    u = torch.where(valid, zero, neg)
-    m = torch.zeros((width,), dtype=torch.int64, device=device)
-    parents, actions = [], []
-    for arrival, limit in zip(arrivals.tolist(), limits.tolist()):
-        # Candidates: carry-over (slot s, action -1) + process with model j.
-        t2 = t.clamp_min(arrival)[None, :] + t_col  # [J, width]
-        ok = valid[None, :] & (t2 <= limit)
-        mf = m.to(torch.float32)
-        mf1 = mf + one
-        mean_term = _fma32(mf / mf1, u - mf / window_t, alpha_acc / mf1)
-        u2 = mean_term + mf1 / window_t
-        ct = torch.cat([t, torch.where(ok, t2, big_t).reshape(-1)])
-        cu = torch.cat([u, torch.where(ok, u2, neg).reshape(-1)])
-        cm = torch.cat([m, torch.where(ok, m + 1, zero_i).reshape(-1)])
-        cok = torch.cat([valid, ok.reshape(-1)])
-        cu = torch.where(cok, cu, neg)
-        ct = torch.where(cok, ct, big_t)
-        # Pareto prune: stable sort by (t asc, u desc), then keep strictly
-        # rising u.  Invalid candidates carry (BIG_T, NEG) keys and sort
-        # after every valid entry.
-        by_u = torch.sort((-cu) + zero, stable=True).indices
-        by_t = torch.sort(ct[by_u] + zero, stable=True).indices
-        perm = by_u[by_t]
-        ct, cu, cm = ct[perm], cu[perm], cm[perm]
-        cpar, cact = cparent[perm], caction[perm]
-        run = torch.cummax(cu, dim=0).values
-        prev_run = torch.cat([neg_head, run[:-1]])
-        keep = cu > prev_run + eps
-        # Compact keepers to the front, truncate to width: the r-th output
-        # slot gathers the r-th keeper, found by searchsorted (left) over
-        # the keep-count prefix sum.
-        csum = torch.cumsum(keep.to(torch.int64), dim=0)
-        pos = torch.searchsorted(csum, ranks).clamp(0, M - 1)
-        filled = slots < csum[-1]
-        t = torch.where(filled, ct[pos], big_t)
-        u = torch.where(filled, cu[pos], neg)
-        m = torch.where(filled, cm[pos], zero_i)
-        valid = filled
-        parents.append(torch.where(filled, cpar[pos], minus1))
-        actions.append(torch.where(filled, cact[pos], minus1))
-    return (t, u, m, valid), torch.stack(parents), torch.stack(actions)
 
 
 def local_utility_dp_jax(
@@ -336,23 +196,20 @@ def local_utility_dp_jax(
     local = [(j, m) for j, m in enumerate(models) if m.runs_local]
     if not local:
         return 0.0, []
-    t_npu, acc = _to_device([
+    device = torch.device(device)
+    t_npu, acc = (x.float() for x in _to_device(
+        device,
         [m.t_npu for _, m in local],
         [m.acc_npu[max(m.acc_npu)] if m.acc_npu else 0.0 for _, m in local],
-    ], torch.device(device)).float()
+    ))
+    # Scalars are rounded to float32 here, as the reference pins them.
+    f32 = {k: _lane(np.float32(v), device) for k, v in (
+        ("gamma", gamma), ("deadline", deadline), ("alpha", alpha), ("npu_free", npu_free),
+        ("first_arrival", first_arrival), ("window", max(window, gamma)))}
     (_, u, _, _), parents, actions = _utility_dp(
-        t_npu,
-        acc,
-        n_frames=n_frames,
-        width=width,
-        gamma=gamma,
-        deadline=deadline,
-        alpha=alpha,
-        npu_free=npu_free,
-        first_arrival=first_arrival,
-        window=max(window, gamma),
+        t_npu, acc, _lane(n_frames, device, torch.int64), width=width, n_frames=n_frames, **f32
     )
-    u, parents, actions = _to_host(u, parents, actions)
+    u, parents, actions = _to_host(u[0], torch.stack(parents, 1)[0], torch.stack(actions, 1)[0])
     best_slot = int(u.argmax())
     best_u = float(u[best_slot])
     decisions: list[tuple[int, int]] = []
@@ -369,6 +226,341 @@ def local_utility_dp_jax(
 
 
 # ---------------------------------------------------------------------------
+# Lane-batched DPs for the sweep engine (core/sim_batch).  Every per-scenario
+# quantity carries a leading lane axis ``B``; one Python loop over the
+# window's frames issues each tensor op once for the whole group of lanes.
+# Nothing in these functions copies to or from the host.
+# ---------------------------------------------------------------------------
+
+
+def _accuracy_lanes(dur, acc, arr_bins, dl_bins, start_bin, *, nbins, n_active=None, records=False):
+    """H over the time grid for ``B`` lanes at once, in ``acc``'s dtype.
+
+    ``dur`` [B, J] int64 duration bins, ``acc`` [J] the DP's accuracy table,
+    ``arr_bins``/``dl_bins`` [B, W] int64, ``start_bin`` [B] int64.  Frames
+    ``k >= n_active`` ([B]) are identity pass-throughs.  Returns ``(H,
+    choices, parents, rec)``: ``H`` [B, nbins], the per-frame ``[B, nbins]``
+    choice/parent rows as lists of length W, and with ``records=True`` the
+    per-frame ``(max H, first argmax bin)`` as two [B, W] tensors."""
+    B, W = arr_bins.shape
+    J = dur.shape[1]
+    dtype, device = acc.dtype, acc.device
+    bins = torch.arange(nbins, dtype=torch.int64, device=device)
+    neg = torch.full((), NEG, dtype=dtype, device=device)
+    minus1 = torch.full((), -1, dtype=torch.int64, device=device)
+    src = bins - dur[:, :, None]  # [B, J, nbins]
+    src_c = src.clamp(0, nbins - 1)
+    src_flat = src_c.reshape(B, J * nbins)
+    hit_bins = bins[None, None, :]
+    a = acc[None, :]  # [1, J]
+    H = torch.where(bins == start_bin.clamp(0, nbins - 1)[:, None],
+                    torch.zeros((), dtype=dtype, device=device), neg)
+    choices, parents, max_h, arg_h = [], [], [], []
+    for k in range(W):
+        arr_bin = arr_bins[:, k, None]  # [B, 1]
+        dl_bin = dl_bins[:, k, None]
+        # prefix max (and its first argmax) of H over [0, arr_bin]
+        masked = torch.where(bins <= arr_bin, H, neg)
+        pre_arg = torch.argmax(masked, dim=1, keepdim=True)  # [B, 1]
+        pre_val = masked.gather(1, pre_arg)
+        # Case A: NPU free <= arrival, finish at arr_bin + d.
+        fbA = arr_bin + dur  # [B, J]
+        okA = (fbA <= dl_bin) & (fbA < nbins) & (pre_val > NEG / 2)
+        hitA = (hit_bins == fbA[:, :, None]) & okA[:, :, None]  # [B, J, nbins]
+        valA = torch.where(hitA, (pre_val + a)[:, :, None], neg)
+        parA = torch.where(hitA, pre_arg[:, :, None], minus1)
+        # Case B: free after arrival; target b takes from source b - d.
+        okB = (src > arr_bin[:, :, None]) & (src >= 0) & (hit_bins <= dl_bin[:, :, None])
+        gathered = torch.where(okB, H.gather(1, src_flat).view(B, J, nbins), neg)
+        valB = torch.where(gathered > NEG / 2, gathered + a[:, :, None], neg)
+        parB = torch.where(valB > NEG / 2, src_c, minus1)
+        pickA = valA >= valB
+        vals = torch.where(pickA, valA, valB)
+        pars = torch.where(pickA, parA, parB)
+        best_j = torch.argmax(vals, dim=1, keepdim=True)  # [B, 1, nbins], first maximum
+        Hn = vals.gather(1, best_j)[:, 0]
+        parent = pars.gather(1, best_j)[:, 0]
+        live = Hn > NEG / 2
+        choice = torch.where(live, best_j[:, 0], minus1)
+        parent = torch.where(live, parent, minus1)
+        if n_active is not None:  # padded frame: identity pass-through, no decision
+            on = (k < n_active)[:, None]
+            Hn = torch.where(on, Hn, H)
+            choice = torch.where(on, choice, minus1)
+            parent = torch.where(on, parent, bins)
+        if records:
+            arg = torch.argmax(Hn, dim=1, keepdim=True)
+            max_h.append(Hn.gather(1, arg)[:, 0])
+            arg_h.append(arg[:, 0])
+        choices.append(choice)
+        parents.append(parent)
+        H = Hn
+    rec = (torch.stack(max_h, dim=1), torch.stack(arg_h, dim=1)) if records else None
+    return H, choices, parents, rec
+
+
+def _accuracy_dp(dur, acc, arr_bins, dl_bins, start_bin, n_active=None, *, nbins):
+    """The float32 Max-Accuracy DP for ``B`` lanes (``acc`` float32; one
+    stream is one lane), frames past ``n_active[b]`` passed through.
+    Returns ``(H, choices, parents)``."""
+    H, choices, parents, _ = _accuracy_lanes(
+        dur, acc, arr_bins, dl_bins, start_bin, nbins=nbins, n_active=n_active)
+    return H, choices, parents
+
+
+def _utility_dp(t_npu, acc, n_active, *, width, gamma, deadline, alpha, npu_free,
+                first_arrival, window, n_frames):
+    """The float32 fixed-width Pareto-front DP for ``B`` lanes (one stream
+    is one lane): ``t_npu``/``acc`` [J] float32, every scalar a float32 [B]
+    tensor, frames ``k >= n_active[b]`` passed through.  Candidates are the
+    carried slots, then the processed ones model-major, as the reference's;
+    its x64 path sorts single int64 keys ``okey << 32 | index``, and two
+    stable sorts give the same permutation.  Returns ``((t, u, m, valid),
+    parents, actions)``, the last two lists of ``n_frames`` [B, width]
+    tensors."""
+    device = acc.device
+    B, J = gamma.shape[0], t_npu.shape[0]
+    M = width * (J + 1)
+    f32, i64 = torch.float32, torch.int64
+    neg = torch.full((), NEG, dtype=f32, device=device)
+    big_t = torch.full((), BIG_T, dtype=f32, device=device)
+    zero = torch.zeros((), dtype=f32, device=device)
+    zero_i = torch.zeros((), dtype=i64, device=device)
+    minus1 = torch.full((), -1, dtype=i64, device=device)
+    slots = torch.arange(width, dtype=i64, device=device)
+    ranks = torch.arange(1, width + 1, dtype=i64, device=device).expand(B, width).contiguous()
+    cparent = torch.cat([slots, slots.repeat(J)]).expand(B, M)
+    caction = torch.cat([torch.full((width,), -1, dtype=i64, device=device),
+                         torch.arange(J * width, dtype=i64, device=device) // width]).expand(B, M)
+    ks = torch.arange(n_frames, dtype=f32, device=device)
+    arrivals = _fma32(ks[None, :], gamma[:, None], first_arrival[:, None])  # [B, n_frames]
+    limits = (arrivals + deadline[:, None]) + torch.full((), 1e-12, dtype=f32, device=device)
+    alpha_acc = (alpha[:, None] * acc[None, :])[:, :, None]  # [B, J, 1]
+    win = window[:, None]
+    valid = (slots == 0).expand(B, width)
+    t = torch.where(valid, torch.maximum(npu_free, zero)[:, None], big_t)
+    u = torch.where(valid, zero, neg)
+    m = torch.zeros((B, width), dtype=i64, device=device)
+    parents, actions = [], []
+    for k in range(n_frames):
+        t2 = torch.maximum(t, arrivals[:, k, None])[:, None, :] + t_npu[None, :, None]  # [B, J, width]
+        ok = valid[:, None, :] & (t2 <= limits[:, k, None, None])
+        mf = m.to(f32)
+        mf1 = mf + 1
+        mean_term = _fma32((mf / mf1)[:, None, :], (u - mf / win)[:, None, :], alpha_acc / mf1[:, None, :])
+        u2 = mean_term + (mf1 / win)[:, None, :]
+        ct = torch.cat([t, torch.where(ok, t2, big_t).reshape(B, -1)], dim=1)
+        cu = torch.cat([u, torch.where(ok, u2, neg).reshape(B, -1)], dim=1)
+        cm = torch.cat([m, torch.where(ok, m[:, None, :] + 1, zero_i).reshape(B, -1)], dim=1)
+        cok = torch.cat([valid, ok.reshape(B, -1)], dim=1)
+        cu = torch.where(cok, cu, neg)
+        ct = torch.where(cok, ct, big_t)
+        # Stable sort by (t asc, u desc): two stable sorts, -0.0 keys
+        # leveled with +0.0 as lax.sort levels them.
+        by_u = torch.sort((-cu) + zero, dim=1, stable=True).indices
+        by_t = torch.sort(ct.gather(1, by_u) + zero, dim=1, stable=True).indices
+        perm = by_u.gather(1, by_t)
+        ct, cu, cm = ct.gather(1, perm), cu.gather(1, perm), cm.gather(1, perm)
+        cpar, cact = cparent.gather(1, perm), caction.gather(1, perm)
+        run = torch.cummax(cu, dim=1).values
+        prev_run = torch.cat([neg.expand(B, 1), run[:, :-1]], dim=1)
+        keep = cu > prev_run + 1e-12
+        csum = torch.cumsum(keep.to(i64), dim=1)
+        pos = torch.searchsorted(csum, ranks).clamp(0, M - 1)
+        filled = slots < csum[:, -1:]
+        nt = torch.where(filled, ct.gather(1, pos), big_t)
+        nu = torch.where(filled, cu.gather(1, pos), neg)
+        nm = torch.where(filled, cm.gather(1, pos), zero_i)
+        npar = torch.where(filled, cpar.gather(1, pos), minus1)
+        nact = torch.where(filled, cact.gather(1, pos), minus1)
+        on = (k < n_active)[:, None]  # padded frame: identity pass-through
+        t = torch.where(on, nt, t)
+        u = torch.where(on, nu, u)
+        m = torch.where(on, nm, m)
+        valid = torch.where(on, filled, valid)
+        parents.append(torch.where(on, npar, slots))
+        actions.append(torch.where(on, nact, minus1))
+    return (t, u, m, valid), parents, actions
+
+
+# ---------------------------------------------------------------------------
+# Float64 twins of the paper's max_accuracy / max_utility local phases, for
+# the network-aware sweep planners.  Those Python references run their DPs
+# in float64, so the twins do too, and keep every sequential tie-break of
+# the reference updates (first model wins ties, case A beats case B within
+# a model, stable (t, -u) candidate order, the last KEPT utility as the
+# dominance bar).
+# ---------------------------------------------------------------------------
+
+
+def _no_fma(product: torch.Tensor) -> torch.Tensor:
+    """Marks a float64 product that must round before the add it feeds.
+
+    The reference's XLA CPU backend would contract such a multiply and add
+    into one fused multiply-add, and guards each one with a select that
+    stops the contraction.  Eager PyTorch runs the multiply as its own
+    kernel, which rounds and stores the product, so nothing is needed here;
+    the marker keeps the guarded products at the reference's places.  (No
+    fused op — ``addcmul``, ``lerp``, ``alpha=`` — may replace them.)"""
+    return product
+
+
+def _accuracy_dp64(dur, acc, arr_bins, dl_bins, start_bin, *, nbins):
+    """f64 twin of ``max_accuracy.local_dp`` for ``B`` lanes, with per-step
+    *prefix records*.
+
+    Frame ``k``'s recurrence touches only frame-local bins, so the DP over
+    frames ``0..nn-1`` is a strict prefix of the DP over the whole padded
+    window: the per-frame records ``(max H, argmax bin, alive)`` equal what
+    ``local_dp(n_frames=nn)`` returns for every ``nn``, all from one pass.
+    Deadness propagates, so ``alive`` is prefix-monotone.  Returns
+    ``(choices, parents, maxH, argb, alive)``: lists of W [B, nbins] rows,
+    then three [B, W] tensors."""
+    _, choices, parents, (max_h, arg_h) = _accuracy_lanes(
+        dur, acc, arr_bins, dl_bins, start_bin, nbins=nbins, records=True)
+    return choices, parents, max_h, arg_h, max_h > NEG / 2
+
+
+def _keep_records(cu: torch.Tensor, width: int):
+    """The Pareto prune's keep rule on sorted candidates ``cu`` [B, M], fast
+    form: a candidate is kept if its utility beats the running maximum of
+    all earlier candidates by 1e-12.
+
+    The reference's bar is the last KEPT utility.  Kept utilities are
+    always new running maxima, so the two bars differ only after a rejected
+    candidate rose above the bar (within the epsilon).  ``suspect`` [B]
+    flags the lanes where one did; elsewhere, by induction over the
+    candidates, the two rules keep the same set.  Returns ``(pos, filled,
+    count, suspect)``: slot ``s`` holds candidate ``pos[:, s]`` where
+    ``filled``, keeping the first ``width`` keepers."""
+    B, M = cu.shape
+    device = cu.device
+    run = torch.cummax(cu, dim=1).values
+    prev_run = torch.cat([torch.full((B, 1), NEG, dtype=cu.dtype, device=device), run[:, :-1]], dim=1)
+    keep = cu > prev_run + 1e-12
+    suspect = (~keep & (cu > prev_run)).any(dim=1)
+    csum = torch.cumsum(keep.to(torch.int64), dim=1)
+    count = csum[:, -1]
+    ranks = torch.arange(1, width + 1, dtype=torch.int64, device=device).expand(B, width).contiguous()
+    pos = torch.searchsorted(csum, ranks).clamp(0, M - 1)
+    slots = torch.arange(width, dtype=torch.int64, device=device)
+    return pos, slots < count[:, None], count, suspect
+
+
+def _keep_chain(cu: torch.Tensor, width: int):
+    """The Pareto prune's keep rule on sorted candidates ``cu`` [B, M],
+    exact form: the last kept utility is the bar, and on cap overflow the
+    ``width`` highest-utility keepers stay (the LAST ``width`` in order).
+
+    A kept candidate ``i`` is a new running maximum, so the next keeper
+    after it is the first ``j`` whose running maximum exceeds ``u_i +
+    1e-12``: one ``searchsorted`` gives every candidate's successor, and
+    pointer doubling walks the chain from the first keeper.  Returns
+    ``(pos, filled, count)`` as :func:`_keep_records` does."""
+    B, M = cu.shape
+    device = cu.device
+    i64 = torch.int64
+    run = torch.cummax(cu, dim=1).values
+    nxt = torch.searchsorted(run, cu + 1e-12, right=True)  # [B, M] in [0, M]
+    first = torch.searchsorted(run, torch.full((B, 1), NEG + 1e-12, dtype=cu.dtype, device=device),
+                               right=True)  # [B, 1]
+    jumps = [torch.cat([nxt, torch.full((B, 1), M, dtype=i64, device=device)], dim=1)]  # M: past the end
+    while (1 << len(jumps)) <= M:
+        jumps.append(jumps[-1].gather(1, jumps[-1]))
+    at = first
+    count = (first < M).to(i64)
+    for level in range(len(jumps) - 1, -1, -1):
+        cand = jumps[level].gather(1, at)
+        step = cand < M
+        at = torch.where(step, cand, at)
+        count = count + step.to(i64) * (1 << level)
+    count = count[:, 0]
+    slots = torch.arange(width, dtype=i64, device=device)
+    target = (count - width).clamp_min(0)[:, None] + slots  # [B, width] chain ranks kept
+    pos = first.expand(B, width)
+    for level, jump in enumerate(jumps):
+        pos = torch.where(((target >> level) & 1) == 1, jump.gather(1, pos), pos)
+    filled = slots < (count - (count - width).clamp_min(0))[:, None]
+    return pos.clamp(0, M - 1), filled, count
+
+
+def _utility_dp64(t_npu, acc, n_active, *, width, gamma, deadline, alpha, npu_free,
+                  first_arrival, window, n_frames, exact):
+    """f64 twin of ``max_utility.local_utility_dp`` (Pareto triples) for
+    ``B`` lanes: ``t_npu``/``acc`` [J] float64 (``inf`` for server-only
+    models), every scalar a float64 [B] tensor, frames ``k >= n_active[b]``
+    passed through.
+
+    Candidate order (carried triples first, then processed candidates
+    slot-major — the reference's ``for tri in U: for j`` loops), the stable
+    ``(t, -u)`` sort and the 1e-12 dominance epsilon mirror the Python
+    reference.  ``exact=True`` applies its keep rule as it is
+    (:func:`_keep_chain`), cap overflow included: at ``width = 256``, the
+    reference's cap, that is the reference.  ``exact=False`` is the fast
+    form (:func:`_keep_records`): exact unless a front outgrows ``width`` or
+    two utilities meet within the epsilon, and the returned ``flag`` [B]
+    reports a live frame where either happened; callers rerun those lanes
+    with ``exact=True`` at the cap.  With ``exact=True`` the flag reports
+    cap overflow.  Returns ``((t, u, m, valid), parents, actions, flag)``."""
+    device = acc.device
+    B, J = gamma.shape[0], t_npu.shape[0]
+    M = width * (J + 1)
+    f64, i64 = torch.float64, torch.int64
+    neg = torch.full((), NEG, dtype=f64, device=device)
+    big_t = torch.full((), BIG_T, dtype=f64, device=device)
+    zero = torch.zeros((), dtype=f64, device=device)
+    zero_i = torch.zeros((), dtype=i64, device=device)
+    minus1 = torch.full((), -1, dtype=i64, device=device)
+    slots = torch.arange(width, dtype=i64, device=device)
+    cparent = torch.cat([slots, slots.repeat_interleave(J)]).expand(B, M)
+    caction = torch.cat([torch.full((width,), -1, dtype=i64, device=device),
+                         torch.arange(J, dtype=i64, device=device).repeat(width)]).expand(B, M)
+    alpha_acc = alpha[:, None] * acc[None, :]  # [B, J]
+    win = window[:, None]
+    valid = (slots == 0).expand(B, width)
+    t = torch.where(valid, torch.maximum(npu_free, zero)[:, None], big_t)
+    u = torch.where(valid, zero, neg)
+    m = torch.zeros((B, width), dtype=i64, device=device)
+    flag = torch.zeros(B, dtype=torch.bool, device=device)
+    parents, actions = [], []
+    for k in range(n_frames):
+        arrival = (first_arrival + _no_fma(k * gamma))[:, None]  # [B, 1]
+        t2 = torch.maximum(t, arrival)[:, :, None] + t_npu  # [B, width, J]: slot-major
+        ok = valid[:, :, None] & (t2 <= ((arrival + deadline[:, None]) + 1e-12)[:, :, None])
+        mf = m.to(f64)
+        mf1 = mf + 1.0
+        mean_term = _no_fma((mf / mf1) * (u - mf / win))[:, :, None] + alpha_acc[:, None, :] / mf1[:, :, None]
+        u2 = mean_term + (mf1 / win)[:, :, None]
+        ct = torch.cat([t, torch.where(ok, t2, big_t).reshape(B, -1)], dim=1)
+        cu = torch.cat([u, torch.where(ok, u2, neg).reshape(B, -1)], dim=1)
+        cm = torch.cat([m, torch.where(ok, m[:, :, None] + 1, zero_i).reshape(B, -1)], dim=1)
+        cok = torch.cat([valid, ok.reshape(B, -1)], dim=1)
+        cu = torch.where(cok, cu, neg)
+        ct = torch.where(cok, ct, big_t)
+        by_u = torch.sort((-cu) + zero, dim=1, stable=True).indices
+        by_t = torch.sort(ct.gather(1, by_u) + zero, dim=1, stable=True).indices
+        perm = by_u.gather(1, by_t)
+        ct, cu, cm = ct.gather(1, perm), cu.gather(1, perm), cm.gather(1, perm)
+        cpar, cact = cparent.gather(1, perm), caction.gather(1, perm)
+        if exact:
+            pos, filled, count = _keep_chain(cu, width)
+            step_flag = count > width
+        else:
+            pos, filled, count, suspect = _keep_records(cu, width)
+            step_flag = (count > width) | suspect
+        on = k < n_active
+        flag = flag | (on & step_flag)
+        on = on[:, None]
+        t = torch.where(on, torch.where(filled, ct.gather(1, pos), big_t), t)
+        u = torch.where(on, torch.where(filled, cu.gather(1, pos), neg), u)
+        m = torch.where(on, torch.where(filled, cm.gather(1, pos), zero_i), m)
+        valid = torch.where(on, filled, valid)
+        parents.append(torch.where(on, torch.where(filled, cpar.gather(1, pos), minus1), slots))
+        actions.append(torch.where(on, torch.where(filled, cact.gather(1, pos), minus1), minus1))
+    return (t, u, m, valid), parents, actions, flag
+
+
+# ---------------------------------------------------------------------------
 # The on-device DPs as registered policies: local-only rounds.
 # ---------------------------------------------------------------------------
 
@@ -380,6 +572,8 @@ def local_utility_dp_jax(
         Param.number("grid", 1e-3, doc="DP time grid (s)"),
     ),
     doc="On-device Max-Accuracy local DP (every window frame on the NPU).",
+    batched=True,
+    batched_multi=True,
 )
 def plan_round_accuracy(
     models: Sequence[ModelProfile],
@@ -423,6 +617,8 @@ def plan_round_accuracy(
         Param.integer("width", 64, doc="Pareto-front width of the on-device DP"),
     ),
     doc="On-device Max-Utility local DP (dominance-pruned front, skips allowed).",
+    batched=True,
+    batched_multi=True,
 )
 def plan_round_utility(
     models: Sequence[ModelProfile],

@@ -191,6 +191,9 @@ def local_window_plan(
     "max_accuracy",
     params=(Param.number("grid", 1e-3, doc="local-phase DP time grid (s)"),),
     doc="Paper §IV Algorithm 1: per-round Max-Accuracy offload + local DP.",
+    batched=True,
+    batched_multi=True,
+    batched_online=True,
 )
 def plan_round(
     models: Sequence[ModelProfile],

@@ -166,6 +166,9 @@ def _local_decisions(
     "max_utility",
     params=(Param.number("alpha", doc="paper Eq. (9) accuracy weight (required)"),),
     doc="Paper §V Algorithm 2: per-round Max-Utility (rate + alpha * accuracy).",
+    batched=True,
+    batched_multi=True,
+    batched_online=True,
 )
 def plan_round(
     models: Sequence[ModelProfile],

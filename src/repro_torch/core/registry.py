@@ -118,12 +118,24 @@ class PolicyEntry:
     (``workloads=("track",)``) plan a detector placement *and* a detector
     interval per round.  ``takes_device`` is set when ``fn`` accepts
     ``device=`` (it plans with tensor ops).
+
+    The three ``batched*`` flags are the reference's, set on the same
+    policies, so ``Session.run_sweep`` routes a grid as the reference does.
+    ``batched=True``: :mod:`repro_torch.core.sim_batch` runs whole
+    single-stream grids of this policy lane-batched on the device.
+    ``batched_multi=True`` (fleet grids) and ``batched_online=True``
+    (``mode="online"`` grids) name the reference's fleet and online sweep
+    engines, which the port does not have yet: ``run_sweep`` refuses such
+    grids with ``NotImplementedError`` rather than run them another way.
     """
 
     name: str
     fn: Callable[..., Any]
     params: tuple[Param, ...] = ()
     doc: str = ""
+    batched: bool = False
+    batched_multi: bool = False
+    batched_online: bool = False
     workloads: tuple[str, ...] = ("classify",)
     takes_device: bool = False
 
@@ -164,6 +176,9 @@ def register_policy(
     *,
     params: Sequence[Param] = (),
     doc: str = "",
+    batched: bool = False,
+    batched_multi: bool = False,
+    batched_online: bool = False,
     workloads: Sequence[str] = ("classify",),
 ) -> Callable:
     """Decorator: register ``fn`` as policy ``name`` with a parameter schema.
@@ -180,6 +195,9 @@ def register_policy(
             fn=fn,
             params=tuple(params),
             doc=doc or (fn.__doc__ or "").strip(),
+            batched=batched,
+            batched_multi=batched_multi,
+            batched_online=batched_online,
             workloads=tuple(workloads),
             takes_device="device" in inspect.signature(fn).parameters,
         )

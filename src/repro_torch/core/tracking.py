@@ -259,6 +259,8 @@ _TRACK_PARAMS = (
         "detection placement (NPU model / offload resolution+model) that "
         "maximize mean decayed accuracy per frame under the deadline."
     ),
+    batched=True,
+    batched_multi=True,
     workloads=("track",),
 )
 def plan_track_accuracy(
@@ -332,6 +334,8 @@ def plan_track_accuracy(
         "highest-accuracy detection that fits inside the interval and the "
         "deadline; the tracker carries the other frames."
     ),
+    batched=True,
+    batched_multi=True,
     workloads=("track",),
 )
 def plan_track_fixed(

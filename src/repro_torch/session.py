@@ -12,10 +12,15 @@ reference's schema, so one spec file runs in either package.
     run_online   the OnlineController with *estimated* bandwidth, audited
                  against the true trace (the deployable configuration)
     run_serving  real models on the card behind the controller (launch/serve)
+    run_sweep    a whole (bandwidth x deadline x fps x policy-param) grid in
+                 one call — lane-batched on the device for ``batched=True``
+                 policies (core/sim_batch), the per-point loop otherwise
 
-Policies that plan with tensor ops (``jax_accuracy``, ``jax_utility``) run
-on the Session's device.  The sweep engine is not ported yet: ``run_sweep``
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Policies that plan with tensor ops (``jax_accuracy``, ``jax_utility``) and
+the batched sweep engine run on the Session's device.  Sweeps the reference
+runs on its fleet or online engines (``sim_multi_batch``,
+``sim_online_batch``), and its compile cache, are not ported yet: those
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
     from repro_torch.core.registry import PolicySpec
     from repro_torch.session import ScenarioSpec, Session
@@ -27,19 +32,24 @@ raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 or from the shell::
 
     PYTHONPATH=src python -m repro_torch.session scenario.json --mode sim --device cpu
+    PYTHONPATH=src python -m repro_torch.session sweep scenario.json --grid grid.json --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import logging
+import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Sequence
+from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 
+from .core import sim_batch
 from .core.audit import AUDIT_TOL, apply_round, audit_round
 from .core.controller import BandwidthEstimator, OnlineController
 from .core.edge_server import ALLOCATION_POLICIES, EdgeServerScheduler, make_fleet
@@ -55,11 +65,16 @@ __all__ = [
     "RunReport",
     "ScenarioSpec",
     "Session",
+    "SweepGrid",
+    "SweepPoint",
+    "SweepReport",
+    "SweepSummary",
     "TraceSpec",
     "WorkloadSpec",
 ]
 
 _PRESET_MODELS: dict[str, ModelProfile] = {m.name: m for m in PAPER_MODELS}
+_LOG = logging.getLogger("repro_torch.session")
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +123,18 @@ class TraceSpec:
         if self.kind == "piecewise":
             return Trace.piecewise(list(self.points), rtt_ms=self.rtt_ms)
         return Trace.constant(self.mbps, rtt_ms=self.rtt_ms)
+
+    def segments(self) -> tuple[tuple[float, float], ...]:
+        """Lower to ``(t_start_s, bandwidth_bps)`` segments — the batched
+        engine's trace representation (a constant trace is one segment at
+        t=0), with ``Trace.piecewise``'s bps conversion."""
+        if self.kind == "piecewise":
+            return tuple((float(t), float(v) * 1e6) for t, v in self.points)
+        return ((0.0, float(self.mbps) * 1e6),)
+
+    @property
+    def rtt_s(self) -> float:
+        return self.rtt_ms / 1e3
 
     def to_json(self) -> dict[str, Any]:
         out: dict[str, Any] = {"kind": self.kind, "rtt_ms": self.rtt_ms}
@@ -373,13 +400,314 @@ class RunReport:
 
 
 # ---------------------------------------------------------------------------
+# Sweep grids: many scenarios in one call (JSON schema shared with the
+# reference, so a grid or report written by one package loads in the other)
+# ---------------------------------------------------------------------------
+
+
+def _axis_values(name: str, values: Any) -> tuple:
+    """Normalize one grid axis to a tuple, rejecting scalars and strings —
+    ``"fifo"`` must not silently become the 4-point axis ('f','i','f','o')."""
+    if isinstance(values, (str, bytes)) or not hasattr(values, "__iter__"):
+        raise ValueError(
+            f"SweepGrid axis {name!r} must be a list of values, got {values!r}"
+        )
+    return tuple(values)
+
+
+@dataclass(frozen=True)
+class SweepGrid:
+    """A cartesian scenario grid over one base :class:`ScenarioSpec`.
+
+    Scenario axes override spec fields; ``params`` axes override the policy's
+    parameters (e.g. ``{"alpha": (50.0, 200.0)}``).  Empty axes are simply
+    absent from the product — an all-empty grid is the single base scenario.
+    """
+
+    bandwidth_mbps: tuple[float, ...] = ()
+    deadline_ms: tuple[float, ...] = ()
+    fps: tuple[float, ...] = ()
+    rtt_ms: tuple[float, ...] = ()
+    n_clients: tuple[int, ...] = ()
+    allocation: tuple[str, ...] = ()
+    params: Mapping[str, tuple] = field(default_factory=dict)
+
+    SCENARIO_AXES = ("bandwidth_mbps", "deadline_ms", "fps", "rtt_ms", "n_clients", "allocation")
+
+    def __post_init__(self) -> None:
+        for name in self.SCENARIO_AXES:
+            object.__setattr__(self, name, _axis_values(name, getattr(self, name)))
+        if not isinstance(self.params, Mapping):
+            raise ValueError(
+                f"SweepGrid params must be a mapping of axis name -> values, "
+                f"got {self.params!r}"
+            )
+        params = {str(k): _axis_values(k, v) for k, v in self.params.items()}
+        for k in params:
+            if k in self.SCENARIO_AXES:
+                raise ValueError(f"param axis {k!r} shadows a scenario axis")
+            if not params[k]:
+                raise ValueError(f"param axis {k!r} is empty")
+        object.__setattr__(self, "params", params)
+
+    def axes(self) -> list[tuple[str, tuple]]:
+        """Non-empty (name, values) axes, scenario axes first."""
+        out = [(n, getattr(self, n)) for n in self.SCENARIO_AXES if getattr(self, n)]
+        out.extend(self.params.items())
+        return out
+
+    def iter_points(self) -> Iterator[dict[str, Any]]:
+        """Lazily yield every grid point as an override dict, in row-major
+        axis order — the streaming twin of :meth:`points`."""
+        axes = self.axes()
+        if not axes:
+            yield {}
+            return
+        names = [n for n, _ in axes]
+        for combo in itertools.product(*(vals for _, vals in axes)):
+            yield dict(zip(names, combo))
+
+    def points(self) -> list[dict[str, Any]]:
+        """Every grid point as an override dict, in row-major axis order."""
+        return list(self.iter_points())
+
+    def __len__(self) -> int:
+        n = 1
+        for _, vals in self.axes():
+            n *= len(vals)
+        return n
+
+    def to_json(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            n: list(getattr(self, n)) for n in self.SCENARIO_AXES if getattr(self, n)
+        }
+        if self.params:
+            out["params"] = {k: list(v) for k, v in self.params.items()}
+        return out
+
+    @staticmethod
+    def from_json(data: Mapping[str, Any] | str) -> "SweepGrid":
+        if isinstance(data, str):
+            data = json.loads(data)
+        if not isinstance(data, Mapping):
+            raise ValueError(f"not a SweepGrid payload: {data!r}")
+        unknown = set(data) - set(SweepGrid.SCENARIO_AXES) - {"params"}
+        if unknown:
+            raise ValueError(
+                f"unknown SweepGrid axes {sorted(unknown)}; "
+                f"scenario axes: {SweepGrid.SCENARIO_AXES} (policy params go under 'params')"
+            )
+        return SweepGrid(
+            **{n: data.get(n, ()) for n in SweepGrid.SCENARIO_AXES},
+            params=data.get("params") or {},
+        )
+
+
+def _apply_point(base: ScenarioSpec, pt: Mapping[str, Any]) -> ScenarioSpec:
+    """Materialize one grid point: base spec + axis overrides."""
+    stream_kw: dict[str, Any] = {}
+    if "deadline_ms" in pt:
+        stream_kw["deadline"] = float(pt["deadline_ms"]) / 1e3
+    if "fps" in pt:
+        stream_kw["fps"] = float(pt["fps"])
+    stream = dataclasses.replace(base.stream, **stream_kw) if stream_kw else base.stream
+
+    trace = base.trace
+    if "bandwidth_mbps" in pt:  # a bandwidth axis implies a constant trace
+        trace = TraceSpec(
+            kind="constant",
+            mbps=float(pt["bandwidth_mbps"]),
+            rtt_ms=float(pt.get("rtt_ms", base.trace.rtt_ms)),
+        )
+    elif "rtt_ms" in pt:
+        trace = dataclasses.replace(trace, rtt_ms=float(pt["rtt_ms"]))
+
+    fleet = base.fleet
+    if "n_clients" in pt or "allocation" in pt:
+        fleet = fleet if fleet is not None else FleetSpec()
+        if "n_clients" in pt and (fleet.weights is not None or fleet.priorities is not None):
+            raise ValueError(
+                "an n_clients grid axis cannot resize a fleet with explicit "
+                "per-client weights/priorities"
+            )
+        fleet_kw: dict[str, Any] = {}
+        if "n_clients" in pt:
+            fleet_kw["n_clients"] = int(pt["n_clients"])
+        if "allocation" in pt:
+            fleet_kw["allocation"] = str(pt["allocation"])
+        fleet = dataclasses.replace(fleet, **fleet_kw)
+
+    param_over = {k: v for k, v in pt.items() if k not in SweepGrid.SCENARIO_AXES}
+    policy = base.policy
+    if param_over:
+        policy = PolicySpec(policy.name, {**policy.params, **param_over})
+
+    return dataclasses.replace(base, policy=policy, stream=stream, trace=trace, fleet=fleet)
+
+
+@dataclass
+class SweepPoint:
+    """One audited grid point: its axis overrides + per-stream stats."""
+
+    overrides: dict[str, Any]
+    streams: list[StreamStats]
+    meta: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def stats(self) -> StreamStats:
+        return self.streams[0]
+
+    @property
+    def aggregate_accuracy(self) -> float:
+        total = sum(s.frames_total for s in self.streams)
+        return sum(s.accuracy_sum for s in self.streams) / total if total else 0.0
+
+    @property
+    def max_miss_rate(self) -> float:
+        return max(
+            (s.frames_missed_deadline / s.frames_total for s in self.streams if s.frames_total),
+            default=0.0,
+        )
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "overrides": dict(self.overrides),
+            "streams": [dataclasses.asdict(s) for s in self.streams],
+            "meta": self.meta,
+        }
+
+    @staticmethod
+    def from_json(data: Mapping[str, Any]) -> "SweepPoint":
+        return SweepPoint(
+            overrides=dict(data.get("overrides") or {}),
+            streams=[StreamStats(**s) for s in data.get("streams") or []],
+            meta=dict(data.get("meta") or {}),
+        )
+
+
+@dataclass
+class SweepSummary:
+    """Streaming reduction of a sweep's per-point stats.
+
+    ``run_sweep`` folds each executed chunk into one of these, so a large
+    grid can report aggregate frames/accuracy/miss extremes without keeping
+    every :class:`SweepPoint` on the host (``keep_points=False``).  Attached
+    to ``SweepReport.meta["summary"]`` as plain JSON whenever the sweep ran
+    chunked or point-free."""
+
+    n_points: int = 0
+    n_streams: int = 0
+    frames_total: int = 0
+    frames_processed: int = 0
+    frames_missed_deadline: int = 0
+    frames_offloaded: int = 0
+    accuracy_sum: float = 0.0
+    best_accuracy: float = 0.0
+    best_point: dict[str, Any] | None = None
+    max_miss_rate: float = 0.0
+    worst_point: dict[str, Any] | None = None
+
+    def update(self, point: SweepPoint) -> None:
+        self.n_points += 1
+        self.n_streams += len(point.streams)
+        for s in point.streams:
+            self.frames_total += s.frames_total
+            self.frames_processed += s.frames_processed
+            self.frames_missed_deadline += s.frames_missed_deadline
+            self.frames_offloaded += s.frames_offloaded
+            self.accuracy_sum += s.accuracy_sum
+        acc = point.aggregate_accuracy
+        if self.best_point is None or acc > self.best_accuracy:
+            self.best_accuracy, self.best_point = acc, dict(point.overrides)
+        miss = point.max_miss_rate
+        if self.worst_point is None or miss > self.max_miss_rate:
+            self.max_miss_rate, self.worst_point = miss, dict(point.overrides)
+
+    @property
+    def mean_accuracy(self) -> float:
+        return self.accuracy_sum / self.frames_total if self.frames_total else 0.0
+
+    def to_json(self) -> dict[str, Any]:
+        out = dataclasses.asdict(self)
+        out["mean_accuracy"] = self.mean_accuracy
+        return out
+
+    @staticmethod
+    def from_json(data: Mapping[str, Any]) -> "SweepSummary":
+        fields = {f.name for f in dataclasses.fields(SweepSummary)}
+        return SweepSummary(**{k: v for k, v in data.items() if k in fields})
+
+
+@dataclass
+class SweepReport:
+    """What ``Session.run_sweep`` returns: the base spec, the grid, which
+    engine actually ran (``backend``), and one :class:`SweepPoint` per grid
+    point in ``grid.points()`` order.  ``to_json``/``from_json`` round-trip
+    losslessly, so a sweep is a replayable artifact.
+
+    Chunked/streamed sweeps (``chunk_size=``/``keep_points=False``) carry
+    their incremental :class:`SweepSummary` in ``meta["summary"]``; with
+    ``keep_points=False`` the summary is the whole artifact and ``points``
+    is empty."""
+
+    base: ScenarioSpec
+    grid: SweepGrid
+    backend: str  # "reference" | "batched" — the engine that actually ran
+    points: list[SweepPoint]
+    meta: dict[str, Any] = field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    def __iter__(self) -> Iterator[SweepPoint]:
+        return iter(self.points)
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "base": self.base.to_json(),
+            "grid": self.grid.to_json(),
+            "backend": self.backend,
+            "points": [p.to_json() for p in self.points],
+            "meta": self.meta,
+        }
+
+    @staticmethod
+    def from_json(data: Mapping[str, Any] | str) -> "SweepReport":
+        if isinstance(data, str):
+            data = json.loads(data)
+        if not isinstance(data, Mapping) or "base" not in data or "grid" not in data:
+            raise ValueError("not a SweepReport payload (missing 'base'/'grid')")
+        return SweepReport(
+            base=ScenarioSpec.from_json(data["base"]),
+            grid=SweepGrid.from_json(data["grid"]),
+            backend=str(data.get("backend", "reference")),
+            points=[SweepPoint.from_json(p) for p in data.get("points") or []],
+            meta=dict(data.get("meta") or {}),
+        )
+
+
+# ---------------------------------------------------------------------------
 # Session facade
 # ---------------------------------------------------------------------------
 
-_SWEEP_NOT_PORTED = (
-    "Session.run_sweep is not ported to repro_torch yet; see ROADMAP.md, "
-    "'Modules to port', item 5 (the float64 jax_sched DPs, bucketing, sim_batch, run_sweep)"
-)
+# The reference's sweep engines and options this package does not have yet.
+# run_sweep refuses them by name instead of running them another way.
+_NOT_PORTED = {
+    "sim_multi_batch": (
+        "the batched fleet sweep engine (core/sim_multi_batch) is not ported to "
+        "repro_torch yet; see ROADMAP.md, 'Modules to port', item 6; "
+        "backend='reference' runs the grid point by point"
+    ),
+    "sim_online_batch": (
+        "the batched online sweep engine (core/sim_online_batch) is not ported to "
+        "repro_torch yet; see ROADMAP.md, 'Modules to port', item 7; "
+        "backend='reference' runs the grid point by point"
+    ),
+    "compile_cache": (
+        "the sweep compile cache (core/compile_cache, $REPRO_COMPILE_CACHE) is not "
+        "ported to repro_torch yet; see ROADMAP.md, 'Modules to port', item 8"
+    ),
+}
 
 
 class Session:
@@ -529,8 +857,206 @@ class Session:
             },
         )
 
-    def run_sweep(self, *args, **kwargs):
-        raise NotImplementedError(_SWEEP_NOT_PORTED)
+    # -- mode: a whole scenario grid in one call ---------------------------
+    BACKENDS = ("auto", "reference", "batched")
+    SWEEP_MODES = ("auto", "online")
+
+    def run_sweep(
+        self,
+        grid: SweepGrid,
+        *,
+        backend: str = "auto",
+        mode: str = "auto",
+        chunk_size: int | None = None,
+        keep_points: bool = True,
+        compile_cache: str | None = None,
+    ) -> SweepReport:
+        """Run the base scenario across every point of ``grid``.
+
+        Backend routing is the reference's: single-stream grids of policies
+        registered ``batched=True`` run lane-batched on the Session's device
+        (``core/sim_batch``; the network-aware planners replay constant and
+        piecewise traces there); anything else runs the per-point engines
+        (``run_sim``, or ``run_multi`` when the point has a fleet).
+        Requesting ``backend="batched"`` for a policy/grid combination
+        without a batched engine logs a warning and falls back to the
+        per-point loop, recorded in ``meta["fallback"]``.  Grids the
+        reference runs on its fleet or online engines (``batched_multi`` /
+        ``batched_online`` policies) raise ``NotImplementedError`` naming
+        the ROADMAP.md item that ports them, unless ``backend="reference"``.
+
+        ``chunk_size`` plans the grid as a lazy iterator of chunks instead
+        of materializing every spec upfront.  Chunking is result-invariant
+        (shape groups are per-scenario and padding is inert), and each
+        chunk's stats fold into an incremental :class:`SweepSummary` in
+        ``meta["summary"]``.  ``keep_points=False`` drops per-point results
+        after folding them into the summary.  ``compile_cache`` (and
+        ``$REPRO_COMPILE_CACHE``) raise ``NotImplementedError``.
+
+        ``mode="online"`` sweeps the observe->replan->execute world of
+        ``run_online`` instead of the oracle-bandwidth simulator, point by
+        point; online sweeps are single-stream.
+        """
+        if backend not in self.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; want one of {self.BACKENDS}")
+        if mode not in self.SWEEP_MODES:
+            raise ValueError(f"unknown sweep mode {mode!r}; want one of {self.SWEEP_MODES}")
+        if chunk_size is not None and int(chunk_size) < 1:
+            raise ValueError(f"chunk_size must be a positive int, got {chunk_size!r}")
+        if compile_cache is not None or os.environ.get("REPRO_COMPILE_CACHE"):
+            raise NotImplementedError(_NOT_PORTED["compile_cache"])
+        entry = get_policy(self.spec.policy.name)
+        n_points = len(grid)
+        chunk = n_points if chunk_size is None else int(chunk_size)
+        # A bandwidth_mbps axis *replaces* the base trace; on a piecewise
+        # base that discards the time-varying profile — surface it (logged
+        # once, recorded per point below).
+        clobbers = bool(grid.bandwidth_mbps) and self.spec.trace.kind == "piecewise"
+        if clobbers:
+            _LOG.warning(
+                "sweep axis 'bandwidth_mbps' replaces the piecewise base trace "
+                "with a constant trace at %d grid point(s); drop the axis (or "
+                "use a constant base trace) if the time-varying profile matters",
+                n_points,
+            )
+        meta: dict[str, Any] = {"requested_backend": backend, "grid_points": n_points,
+                                "device": str(self.device)}
+        if mode != "auto":
+            meta["mode"] = mode
+        streaming = chunk_size is not None or not keep_points
+        summary = SweepSummary() if streaming else None
+        out_points: list[SweepPoint] = []
+        groups: list[dict[str, Any]] = []
+        use_batched: bool | None = None  # decided on the first chunk
+        t0 = time.perf_counter()
+        it = grid.iter_points()
+        n_chunks = 0
+        while True:
+            pts = list(itertools.islice(it, chunk))
+            if not pts:
+                break
+            n_chunks += 1
+            specs = [_apply_point(self.spec, p) for p in pts]
+            if mode == "online" and any(s.fleet is not None for s in specs):
+                raise ValueError(
+                    "sweep mode 'online' is single-stream (run_online has no "
+                    "fleet engine); drop the fleet or use mode='auto'"
+                )
+            if mode == "online" and any(s.workload.is_track for s in specs):
+                raise ValueError(
+                    "mode 'online' does not execute the tracking workload "
+                    "yet; use run_sim/run_multi/run_sweep"
+                )
+            if use_batched is None:
+                capable, why = self._batched_capability(entry, specs, mode=mode)
+                use_batched = capable if backend == "auto" else backend == "batched"
+                if use_batched and not capable:
+                    _LOG.warning(
+                        "%s; run_sweep falling back to the reference loop "
+                        "(batched policies: %s)", why, sim_batch.batched_policies(),
+                    )
+                    meta["fallback"] = why
+                    use_batched = False
+                if use_batched:
+                    if mode == "online":
+                        raise NotImplementedError(_NOT_PORTED["sim_online_batch"])
+                    if any(s.fleet is not None for s in specs):
+                        raise NotImplementedError(_NOT_PORTED["sim_multi_batch"])
+                    meta["engine"] = "sim_batch"
+            if use_batched:
+                points = self._sweep_batched(specs, pts, groups)
+            else:
+                points = [self._sweep_reference(s, p, mode=mode) for s, p in zip(specs, pts)]
+            if clobbers:
+                for point in points:
+                    point.meta["trace_override"] = (
+                        "bandwidth_mbps axis replaced the piecewise base trace "
+                        "with a constant trace"
+                    )
+            if summary is not None:
+                for point in points:
+                    summary.update(point)
+            if keep_points:
+                out_points.extend(points)
+        meta["wall_s"] = time.perf_counter() - t0
+        if chunk_size is not None:
+            meta["chunks"] = n_chunks
+            meta["chunk_size"] = chunk
+        if summary is not None:
+            meta["summary"] = summary.to_json()
+        if not keep_points:
+            meta["points_streamed"] = n_points
+        if groups:  # the batched engine's shape groups: lanes, rounds, host reads, reruns
+            meta["groups"] = [{**g, "key": list(g["key"]) if isinstance(g["key"], tuple) else g["key"]}
+                              for g in groups]
+        return SweepReport(
+            base=self.spec,
+            grid=grid,
+            backend="batched" if use_batched else "reference",
+            points=out_points,
+            meta=meta,
+        )
+
+    def _batched_capability(
+        self, entry, specs: Sequence[ScenarioSpec], mode: str = "auto"
+    ) -> tuple[bool, str]:
+        """Does the reference run this (policy, grid) on a batched engine?
+
+        Single-stream grids need ``batched=True`` (``sim_batch``; the trace
+        kind never gates routing).  Fleet grids need ``batched_multi=True``
+        and a fleet at every grid point; online sweeps need
+        ``batched_online=True``."""
+        if mode == "online":
+            if entry.batched_online:
+                return True, ""
+            return False, f"policy {entry.name!r} has no batched online backend"
+        fleet_pts = sum(1 for s in specs if s.fleet is not None)
+        if fleet_pts == 0:
+            if entry.batched:
+                return True, ""
+            return False, f"policy {entry.name!r} has no batched backend"
+        if not entry.batched_multi:
+            return False, f"policy {entry.name!r} has no batched fleet backend"
+        if fleet_pts < len(specs):
+            return False, (
+                f"fleet backend for {entry.name!r} needs a fleet at every "
+                "grid point (grid mixes fleet and single-stream points)"
+            )
+        return True, ""
+
+    def _sweep_reference(
+        self, spec: ScenarioSpec, pt: Mapping[str, Any], mode: str = "auto"
+    ) -> SweepPoint:
+        session = Session(spec, device=self.device)
+        if mode == "online":
+            rep = session.run("online")
+        else:
+            rep = session.run("multi" if spec.fleet is not None else "sim")
+        return SweepPoint(overrides=dict(pt), streams=rep.streams, meta=dict(rep.meta))
+
+    def _sweep_batched(
+        self, specs: list[ScenarioSpec], pts: list[dict[str, Any]], groups: list[dict[str, Any]]
+    ) -> list[SweepPoint]:
+        base = self.spec
+        scens = [
+            sim_batch.BatchScenario(
+                stream=s.stream,
+                n_frames=s.n_frames,
+                params=s.policy.params,
+                rtt=s.trace.rtt_s,
+                bw_segments=s.trace.segments(),
+                workload=s.workload,
+            )
+            for s in specs
+        ]
+        stats = sim_batch.simulate_batch(
+            base.policy.name, list(base.models), scens, strict=base.strict, device=self.device,
+            groups=groups,
+        )
+        return [
+            SweepPoint(overrides=dict(pt), streams=[st], meta={"policy": spec.policy.name})
+            for spec, pt, st in zip(specs, pts, stats)
+        ]
 
     # -- mode: real models behind the controller ---------------------------
     def run_serving(self) -> RunReport:
@@ -557,8 +1083,10 @@ class Session:
 
 # ---------------------------------------------------------------------------
 # CLI:  python -m repro_torch.session spec.json [--mode sim|multi|online|serving]
-# Malformed specs (bad JSON, unknown policy, invalid parameters) exit 2 with
-# a one-line ``error: ...`` on stderr — never a traceback.
+#       python -m repro_torch.session sweep spec.json --grid grid.json
+# Malformed specs/grids (bad JSON, unknown policy, invalid parameters) and
+# what is not ported exit 2 with a one-line ``error: ...`` on stderr — never
+# a traceback.
 # ---------------------------------------------------------------------------
 
 _EXAMPLE = ScenarioSpec(
@@ -567,6 +1095,8 @@ _EXAMPLE = ScenarioSpec(
     trace=TraceSpec(mbps=2.5),
     label="example",
 )
+
+_EXAMPLE_GRID = SweepGrid(bandwidth_mbps=(1.0, 2.5), deadline_ms=(150.0, 200.0, 250.0))
 
 
 def _read(path: str) -> str:
@@ -578,13 +1108,74 @@ def _fail(exc: Exception) -> int:
     return 2
 
 
+def _sweep_main(argv: Sequence[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.session sweep",
+        description="Run one ScenarioSpec across a SweepGrid; print a SweepReport JSON.",
+    )
+    ap.add_argument("spec", nargs="?", help="path to ScenarioSpec JSON, or '-' for stdin")
+    ap.add_argument("--grid", help="path to SweepGrid JSON (see --example-grid)")
+    ap.add_argument("--backend", default="auto", choices=Session.BACKENDS)
+    ap.add_argument("--mode", default="auto", choices=Session.SWEEP_MODES,
+                    help="'online' sweeps the estimated-bandwidth controller "
+                    "loop (run_online) instead of the oracle simulator")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--out", help="write the SweepReport JSON here; print a summary instead")
+    ap.add_argument("--chunk-size", type=int, default=None, metavar="N",
+                    help="stream the grid in chunks of N points (equal to "
+                    "unchunked; adds an incremental summary to meta)")
+    ap.add_argument("--summary-only", action="store_true",
+                    help="drop per-point stats, keep only the streaming summary")
+    ap.add_argument("--compile-cache", metavar="DIR",
+                    help="the reference's compile cache (not ported: exits 2)")
+    ap.add_argument("--example-grid", action="store_true",
+                    help="print an example grid JSON and exit")
+    args = ap.parse_args(argv)
+
+    if args.example_grid:
+        print(json.dumps(_EXAMPLE_GRID.to_json(), indent=2))
+        return 0
+    if not args.spec or not args.grid:
+        ap.error("need a spec path and --grid (or --example-grid)")
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as exc:  # no card, or an unknown device
+        return _fail(exc)
+    try:
+        spec = ScenarioSpec.from_json(_read(args.spec))
+        grid = SweepGrid.from_json(_read(args.grid))
+        report = Session(spec, device=device).run_sweep(
+            grid,
+            backend=args.backend,
+            mode=args.mode,
+            chunk_size=args.chunk_size,
+            keep_points=not args.summary_only,
+            compile_cache=args.compile_cache,
+        )
+        payload = json.dumps(report.to_json(), indent=2)
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(payload + "\n")
+    except (OSError, TypeError, ValueError, NotImplementedError) as exc:
+        return _fail(exc)
+    if args.out:
+        print(
+            f"{len(report)} points via {report.backend} backend in "
+            f"{report.meta.get('wall_s', 0.0):.2f}s -> {args.out}"
+        )
+    else:
+        print(payload)
+    return 0
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["sweep"]:
-        return _fail(NotImplementedError(_SWEEP_NOT_PORTED))
+        return _sweep_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.session",
-        description="Run a declarative FastVA scenario (ScenarioSpec JSON).",
+        description="Run a declarative FastVA scenario (ScenarioSpec JSON). "
+        "Use the 'sweep' subcommand to run a whole scenario grid.",
     )
     ap.add_argument("spec", nargs="?", help="path to ScenarioSpec JSON, or '-' for stdin")
     ap.add_argument("--mode", default="sim", choices=Session.MODES)

@@ -20,7 +20,11 @@ Tolerances and why:
   * the ``jax_*`` planners' float32 DPs (``core/jax_sched``) on the card
     against the same call on the CPU: exact.  Every op rounds as IEEE
     float32/float64 on both (scalars are device tensors, fused roundings
-    are emulated), so the DP values, picks and audited stats are equal.
+    are emulated), so the DP values, picks and audited stats are equal;
+  * the lane-batched sweep engine (``core/sim_batch``) on the card against
+    the same call on the CPU, for the six batched policies at 100 points of
+    chip_smoke's full-width grids: exact, for the same reason (divisors are
+    per-lane device tensors, every product rounds before its add).
 """
 from __future__ import annotations
 
@@ -32,11 +36,23 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
-from chip_smoke import FLASH_SHAPES, FLASH_TOL, GEMM_SHAPES, MISALIGNED, at_offset, own_fan_in  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CPU_CHECK_EVERY,
+    FLASH_SHAPES,
+    FLASH_TOL,
+    GEMM_SHAPES,
+    MISALIGNED,
+    SWEEP_PARAMS,
+    at_offset,
+    batch_scenarios,
+    full_grids,
+    own_fan_in,
+    stats_rows,
+)
 
 from repro_torch import arch as A
-from repro_torch import configs, quant, session
-from repro_torch.core import jax_sched, profiles
+from repro_torch import configs, core, quant, session
+from repro_torch.core import jax_sched, profiles, sim_batch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
@@ -243,3 +259,49 @@ def test_jax_sched_frame_loops_never_wait_for_the_card(cuda_device, monkeypatch)
         jax_sched.local_utility_dp_jax(models, **kw, **ukw, device=cuda_device)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _sweep_scenarios(name: str, n_frames: int = 120):
+    """100 points of chip_smoke's full-width grid (every 10th), shortened
+    to ``n_frames``: both halves, constant and piecewise traces."""
+    out = []
+    for spec, grid in full_grids(name):
+        base, scens = batch_scenarios(session, core, {**spec, "n_frames": n_frames}, grid, every=CPU_CHECK_EVERY)
+        out += scens
+    return list(base.models), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SWEEP_PARAMS))
+def test_sweep_engine_on_card_equals_cpu(cuda_device, name):
+    models, scens = _sweep_scenarios(name)
+    assert len(scens) == 100
+    card = sim_batch.simulate_batch(name, models, scens, device=cuda_device)
+    cpu = sim_batch.simulate_batch(name, models, scens, device="cpu")
+    assert stats_rows(card) == stats_rows(cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SWEEP_PARAMS))
+def test_sweep_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
+    """Inside a round nothing synchronizes with the host: CUDA's sync debug
+    mode raises on any synchronizing call made while a round is issued (its
+    warm-up and its capture as a CUDA graph, which a sync would also
+    break).  The read after each round and the group's set-up copies stay
+    outside."""
+    drive = sim_batch._Run.drive
+
+    def checked_drive(self, key, step, state, n_frames):
+        def checked(st):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return drive(self, key, checked, state, n_frames)
+
+    monkeypatch.setattr(sim_batch._Run, "drive", checked_drive)
+    models, scens = _sweep_scenarios(name, n_frames=24)
+    groups = []
+    sim_batch.simulate_batch(name, models, scens[:20], device=cuda_device, groups=groups)
+    assert all(g["host_reads"] == g["rounds"] + 1 for g in groups if not g["reruns"])

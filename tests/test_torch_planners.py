@@ -151,12 +151,23 @@ def test_registry_validation_matches_reference():
     assert tregistry.available_policies() == jregistry.available_policies()
 
 
+# What run_sweep still refuses, per mode: the fleet and online sweep
+# engines and the compile cache, each named by its ROADMAP.md item.
+_SWEEP_REFUSALS = {
+    "sim": ({}, {"compile_cache": "cache"}, "item 8"),
+    "multi": ({"n_clients": (1, 2)}, {}, "item 6"),
+    "online": ({"deadline_ms": (150.0,)}, {"mode": "online"}, "item 7"),
+}
+
+
 @pytest.mark.parametrize("mode", ["sim", "multi", "online"])
 def test_unported_session_modes_name_the_roadmap(mode):
-    """Every mode but the sweep is ported: each runs, and ``run_sweep``
-    still names the ROADMAP.md item that ports it."""
+    """Every mode runs; ``run_sweep`` runs single-stream grids, and refuses
+    the reference's fleet and online sweep engines and its compile cache,
+    naming the ROADMAP.md item that ports each."""
     spec = tsession.ScenarioSpec(policy="max_accuracy", n_frames=12)
     report = tsession.Session(spec, device="cpu").run(mode)
     assert report.mode == mode and report.stats.frames_total == 12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsession.Session(spec, device="cpu").run_sweep()
+    axes, kw, item = _SWEEP_REFUSALS[mode]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)

@@ -100,11 +100,17 @@ def test_cli_malformed_spec_exits_2_with_one_line(payload, tmp_path, capsys):
 
 
 def test_cli_refuses_sweep_and_a_missing_card(tmp_path, capsys, monkeypatch):
-    rc, out, err = _cli(tsession, ["sweep", "spec.json", "--grid", "grid.json"], capsys)
-    assert rc == 2 and out == "" and err.count("\n") == 1 and "ROADMAP.md" in err and "item 5" in err
-    path = tmp_path / "spec.json"
+    """A fleet grid the reference runs on its fleet engine is refused with
+    its ROADMAP.md item; a missing card is refused by both subcommands."""
+    path, grid = tmp_path / "spec.json", tmp_path / "grid.json"
+    path.write_text(json.dumps(SPECS[3]))
+    grid.write_text(json.dumps({"allocation": ["priority", "fifo"]}))
+    rc, out, err = _cli(tsession, ["sweep", str(path), "--grid", str(grid), "--device", "cpu"], capsys)
+    assert rc == 2 and out == "" and err.count("\n") == 1 and "ROADMAP.md" in err and "item 6" in err
     path.write_text(json.dumps(SPECS[0]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _cli(tsession, ["sweep", str(path), "--grid", str(grid)], capsys)
+    assert rc == 2 and out == "" and err.startswith("error: ") and err.count("\n") == 1
     rc, out, err = _cli(tsession, [str(path)], capsys)  # --device defaults to cuda
     assert rc == 2 and out == "" and err.startswith("error: ") and err.count("\n") == 1
     with pytest.raises(RuntimeError, match="is_available"):
@@ -112,8 +118,12 @@ def test_cli_refuses_sweep_and_a_missing_card(tmp_path, capsys, monkeypatch):
 
 
 def test_run_sweep_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*item 5"):
-        tsession.Session(tsession.ScenarioSpec(policy="local"), device=CPU).run_sweep()
+    """A single-stream grid runs; the compile cache the reference offers is
+    refused with its ROADMAP.md item."""
+    session = tsession.Session(tsession.ScenarioSpec(policy="local"), device=CPU)
+    assert len(session.run_sweep(tsession.SweepGrid())) == 1
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*item 8"):
+        session.run_sweep(tsession.SweepGrid(), compile_cache="cache")
 
 
 def test_module_entry_point_runs(tmp_path):
