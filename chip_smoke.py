@@ -20,7 +20,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   3. flash        flash_attention against its plain version on the card at
                   FLASH_SHAPES (tests/test_kernels.py's, ragged 17·n+3 sizes,
                   every bf16 head dim at batch 1 and 8, causal S > T, the
-                  smoke ViT's and ViT-S/16's shapes): the reference's
+                  smoke ViT's and ViT-S/16's shapes, head dims 8 and 72 that
+                  run zero-padded to the kernel's 16 and 128): the reference's
                   tolerances, kernel / plain / library (SDPA) / bound times,
                   blocks and kernel (mma = tensor cores, fma = CUDA cores);
                   then a misaligned bf16 call, which must take the CUDA-core
@@ -51,12 +52,26 @@ Phases (each raises on failure, so any failure exits non-zero):
                   policies: 20-point golden grids (the max_* policies also
                   under a piecewise trace, the track policies on their own
                   grid) against SWEEP_GOLDENS, the reference's numbers; then
-                  1000 points x 900 frames a policy, twice, every 10th point
+                  1000 points x 900 frames a policy, twice, every 20th point
                   re-run on the host CPU bit for bit; max_utility over
                   10,000 points chunked against unchunked; the per-point
                   loop on the card at 10 and 100 points; ms per point,
                   groups, rounds, host reads per round and peak card memory
- 10. report       {"kernels": [...]} line, then the contract's last line
+ 10. online       Session.run_sweep(mode="online") through the lane-batched
+                  online engine (core/sim_online_batch) on device="cuda" for
+                  max_accuracy and max_utility: tests/test_online_batch.py's
+                  square wave, fault injection, dead link and golden lattice
+                  against ONLINE_GOLDENS, the reference's numbers; the
+                  adaptivity bench's 1000-point grid over 60 frames, twice,
+                  every point against the per-point run_online loop on the
+                  card; the same grid over 900 frames with every 10th point
+                  re-run on the host CPU bit for bit
+ 11. cache        the sweep phase's 10,000-point max_utility grid in chunks,
+                  without the cache of captured lane programs
+                  (core/sweep_shard), then with it twice, under
+                  CompileCounter: captures, hits, wall seconds, the memory
+                  the cached programs hold; results equal in every field
+ 12. report       {"kernels": [...]} line, then the contract's last line
 
 Every main-path phase (serve_full, vit_full, serving) sets both kernels'
 launch counts to 0 just before it runs and reads them just after; while
@@ -115,6 +130,10 @@ FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.p
     # bf16 causal with S > T: rows with no key, split over the block's warps
     (1, 40, 20, 4, 2, 32, True, "bfloat16"), (2, 70, 33, 8, 2, 64, True, "bfloat16"),
     (1, 50, 17, 2, 1, 16, True, "bfloat16"),
+    # head dims outside the kernel's set, run zero-padded to 16 and 128: the
+    # command-r smoke config (8 heads over 2 KV heads, hd 8, causal) and
+    # DiT-XL/2 at 256² (256 latent tokens, 16 heads of 1152 / 16 = 72)
+    (2, 32, 32, 8, 2, 8, True, "bfloat16"), (1, 256, 256, 16, 16, 72, False, "bfloat16"),
 ]
 FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (0.05, 0.02)}  # (rtol, atol): tests/test_kernels.py's
 VIT_LOGIT_RTOL = 0.02  # max|kernel - plain attention| over max|logit| of the full-width ViT forward
@@ -189,13 +208,35 @@ SWEEP_DL = [100.0, 150.0, 200.0, 250.0, 350.0]
 SWEEP_FPS = [10.0, 15.0, 24.0, 30.0, 60.0]
 SWEEP_TRACE = {"kind": "piecewise", "rtt_ms": 60.0,  # steps through the 30 s stream
                "points": [[0.0, 3.0], [5.0, 0.8], [10.0, 6.0], [15.0, 1.5], [20.0, 4.0], [25.0, 0.5]]}
-CPU_CHECK_EVERY = 10  # the host CPU re-runs every 10th full-width point: 100 a policy
+CPU_CHECK_EVERY = 20  # the host CPU re-runs every 20th full-width point: 50 a policy
 CHUNK_POINTS, CHUNK_SIZE = 10_000, 2500  # max_utility at 24 frames, chunked against unchunked
 PROFILE_FRAMES = 300  # the profiled group's stream (eager rounds take ~20 ms each)
 REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 100 points
     10: {"bandwidth_mbps": [1.0, 3.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
     100: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [24.0, 30.0]},
 }
+
+# The online phase: Session.run_sweep(mode="online") through the lane-batched
+# online engine (core/sim_online_batch), held against the reference's numbers
+# (ONLINE_GOLDENS; tests/test_torch_online_goldens.py holds the table against
+# the reference package), then at full width against the per-point run_online
+# loop on the card and against itself on the host CPU.  Base params and the
+# param axis of the golden lattice (tests/test_online_batch.py:36-39):
+ONLINE_PARAMS = {
+    "max_accuracy": ({"grid": 0.01}, {"grid": [0.01, 0.02]}),
+    "max_utility": ({"alpha": 200.0}, {"alpha": [50.0, 200.0]}),
+}
+# tests/test_online_batch.py:53-55: 3.5 Mbps for the first second, 0.8 after
+ONLINE_SQUARE = {"kind": "piecewise", "points": [[0.0, 3.5], [1.0, 0.8]], "rtt_ms": 100.0}
+# benchmarks/adaptivity_bench.py:61-84: the mobility square wave (3.5 <-> 0.8
+# Mbps, 2 s period), 60 frames at 30 fps, deadline (one window shape) x 200
+# RTTs over 50-110 ms: 1000 points a policy; then the same grid over 900
+# frames (30 s of the wave), every ONLINE_CPU_EVERY-th point re-run on the
+# host CPU.
+ADAPT_FRAMES, ADAPT_LONG_FRAMES = 60, 900
+ADAPT_GRID = {"deadline_ms": [200.0, 208.0, 216.0, 224.0, 232.0],
+              "rtt_ms": [50.0 + 60.0 * i / 200 for i in range(200)]}
+ONLINE_CPU_EVERY = 10
 
 
 def log(msg: str) -> None:
@@ -505,7 +546,7 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, off
     if offset:
         q, k, v = (at_offset(torch, t, offset) for t in (q, k, v))
     design = {"path": flash_ops.kernel_path(q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr()),
-              "blocks": flash_ops.blocks(B, S, H, KH)}
+              "blocks": flash_ops.blocks(B, S, H, KH), "width": flash_ops.padded_head_dim(hd)}
     out = flash_ops.flash_attention(q, k, v, causal=causal)
     # the plain version on the f32-upcast inputs (the reference's bf16 test)
     plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
@@ -545,7 +586,7 @@ def phase_flash(torch, flash_ops, flash_ref) -> dict:
     log("flash_attention: device ms per call (CUDA graph); k_call = per eager call (host launch included)")
     log(f"{'B':>2} {'S':>4} {'T':>4} {'H':>3} {'KH':>3} {'hd':>4} {'causal':>6} {'dtype':>8} {'kernel':>8} "
         f"{'plain':>8} {'library':>8} {'bound':>9} {'by':>5} {'k_call':>7} {'max_err':>9} {'lib_err':>9} "
-        f"{'blocks':>6} path ok")
+        f"{'blocks':>6} path width ok")
     for shape in FLASH_SHAPES:
         r = compare_flash(torch, flash_ops, flash_ref, shape)
         rows[shape] = r
@@ -553,7 +594,7 @@ def phase_flash(torch, flash_ops, flash_ref) -> dict:
         log(f"{B:>2} {S:>4} {T:>4} {H:>3} {KH:>3} {hd:>4} {str(causal):>6} {dt:>8} {r['ms']:>8.4f} "
             f"{r['plain_ms']:>8.4f} {r['library_ms']:>8.4f} {r['bound_ms']:>9.6f} {r['bound_by'][:5]:>5} "
             f"{r['call_ms']:>7.4f} {r['max_abs_err']:>9.2e} {r['library_err']:>9.2e} {r['blocks']:>6} "
-            f"{r['path']:>4} {r['ok']}")
+            f"{r['path']:>4} {r['width']:>5} {r['ok']}")
     bad = [k for k, r in rows.items() if not r["ok"]]
     check(not bad, f"flash kernel outside tolerance of its plain version at {bad}")
     log(f"flash: {len(rows)} shapes within tolerance of the plain version on f32-upcast inputs "
@@ -1142,13 +1183,7 @@ def phase_sweep(torch, core, session, smi: str) -> None:
             f"{peak:.1f} MiB above what earlier phases hold")
 
     # Chunking is result-invariant: max_utility over 10,000 points at 24 frames.
-    spec = session.ScenarioSpec.from_json(sweep_spec("max_utility", GOLD_FRAMES))
-    side = round(CHUNK_POINTS ** 0.25)
-    grid = session.SweepGrid(bandwidth_mbps=tuple(0.5 + 0.55 * i for i in range(side)),
-                             deadline_ms=tuple(100.0 + 25.0 * i for i in range(side)),
-                             fps=tuple(10.0 + 5.0 * i for i in range(side)),
-                             params={"alpha": tuple(20.0 + 20.0 * i for i in range(side))})
-    check(len(grid) == CHUNK_POINTS, f"chunk grid has {len(grid)} points")
+    spec, grid = chunk_grid(session)
     whole, s_whole = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(grid, keep_points=False))
     chunked, s_chunk = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(
         grid, chunk_size=CHUNK_SIZE, keep_points=False))
@@ -1162,10 +1197,24 @@ def phase_sweep(torch, core, session, smi: str) -> None:
     log(f"sweep: phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+def chunk_grid(session):
+    """max_utility over CHUNK_POINTS points at 24 frames: bandwidth x
+    deadline x fps x alpha, 10 values each.  Returns (spec, grid)."""
+    spec = session.ScenarioSpec.from_json(sweep_spec("max_utility", GOLD_FRAMES))
+    side = round(CHUNK_POINTS ** 0.25)
+    grid = session.SweepGrid(bandwidth_mbps=tuple(0.5 + 0.55 * i for i in range(side)),
+                             deadline_ms=tuple(100.0 + 25.0 * i for i in range(side)),
+                             fps=tuple(10.0 + 5.0 * i for i in range(side)),
+                             params={"alpha": tuple(20.0 + 20.0 * i for i in range(side))})
+    check(len(grid) == CHUNK_POINTS, f"chunk grid has {len(grid)} points")
+    return spec, grid
+
+
 def profile_round(torch, core, session, smi: str) -> None:
     """Where a round's time goes: one max_accuracy shape group (fps 30,
     deadline 350 ms: W = 10, 20 lanes) over PROFILE_FRAMES frames, its
-    rounds replayed as CUDA graphs and issued eagerly: wall time, and the
+    rounds replayed as CUDA graphs and issued eagerly: wall time of a run
+    that builds its lane program (and captures its graph) afresh, and the
     device's busy time from torch.profiler in a second run of each."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,9 +1223,10 @@ def profile_round(torch, core, session, smi: str) -> None:
     scens = [s for s in scens if s.stream.fps == 30.0 and abs(s.stream.deadline - 0.35) < 1e-9]
     run = lambda groups=None: core.sim_batch.simulate_batch(  # noqa: E731
         "max_accuracy", list(base.models), scens, device=DEVICE, groups=groups)
-    eager = mock.patch.object(core.sim_batch, "_graphed", lambda step, state: (step, state))
+    shard = core.sweep_shard
+    eager = mock.patch.object(shard.LaneProgram, "start", lambda prog: prog.init())  # never captures
     for label, mode in (("graphed", contextlib.nullcontext()), ("eager", eager)):
-        with mode:
+        with mode, mock.patch.object(shard, "PROGRAMS", shard.LaneCache()):
             groups = []
             stats, wall = timed(torch, lambda: run(groups))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1187,6 +1237,192 @@ def profile_round(torch, core, session, smi: str) -> None:
         log(f"sweep: profile, max_accuracy group {g['key']} of {g['lanes']} lanes over {PROFILE_FRAMES} frames, "
             f"rounds {label}: {g['rounds']} rounds in {1e3 * wall:.1f} ms ({1e3 * wall / g['rounds']:.3f} ms a "
             f"round); device busy {busy:.1f} ms, {100 * busy / (1e3 * wall):.1f}% of the wall ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# 10. online: Session.run_sweep(mode="online") through the lane-batched
+#     online engine
+# ---------------------------------------------------------------------------
+
+
+def online_spec(name: str, n_frames: int, trace: dict) -> dict:
+    return {"policy": {"name": name, "params": ONLINE_PARAMS[name][0]}, "n_frames": n_frames, "trace": trace}
+
+
+def online_cases(scenariogen) -> dict:
+    """Case name -> (ScenarioSpec JSON, SweepGrid JSON):
+    tests/test_online_batch.py:84-143 — the square wave at 45 frames over
+    two RTTs; fault injection, 180 frames over the outage edge_failure
+    detects (the edge fails at 2 s and recovers at 5 s); a link dead from
+    the start (max_accuracy); the golden lattice, 90 frames, deadline x rtt
+    x the param axis.  ``scenariogen`` is the package's own, so the same
+    table can be computed by either package."""
+    outage = scenariogen.edge_failure(fail_at_s=2.0, recover_at_s=5.0, duration_s=8.0, base_mbps=3.5)
+    rtts = {"rtt_ms": [60.0, 100.0]}
+    cases = {}
+    for name, (_, axis) in ONLINE_PARAMS.items():
+        cases[f"{name}/square"] = (online_spec(name, 45, ONLINE_SQUARE), rtts)
+        cases[f"{name}/fault"] = (online_spec(name, 180, outage.trace.to_json()), rtts)
+        cases[f"{name}/lattice"] = (online_spec(name, 90, ONLINE_SQUARE),
+                                    {"deadline_ms": [150.0, 200.0, 250.0], **rtts, "params": axis})
+    cases["max_accuracy/dead"] = (online_spec("max_accuracy", 45, {"kind": "constant", "mbps": 0.0, "rtt_ms": 100.0}),
+                                  {})
+    return cases
+
+
+def online_rows(report) -> list:
+    """Per point of an online SweepReport: :func:`sweep_rows`' six fields,
+    then the rounds and the final believed bandwidth run_online reports."""
+    return [[*row, p.meta["rounds"], p.meta["estimated_bps"]] for row, p in zip(sweep_rows(report), report.points)]
+
+
+def online_table(session, scenariogen, run) -> dict:
+    """Every case of :func:`online_cases` through ``run(spec, grid)``."""
+    return {name: online_rows(run(session.ScenarioSpec.from_json(spec), session.SweepGrid.from_json(grid)))
+            for name, (spec, grid) in online_cases(scenariogen).items()}
+
+
+def online_agree(got: list, want: list, tol: float) -> bool:
+    """The reference's online contract: integer stats and rounds exact, the
+    accuracy sum within ``tol`` (AUDIT_TOL), the believed bandwidth bit for
+    bit."""
+    return len(got) == len(want) and all(
+        g[:5] == w[:5] and abs(g[5] - w[5]) <= tol and g[6:] == w[6:] for g, w in zip(got, want))
+
+
+def adaptivity_case(session, scenariogen, name: str, n_frames: int):
+    """(spec, grid) of the adaptivity bench's 1000-point grid over
+    ``n_frames``: the mobility square wave lasts the whole stream."""
+    trace = scenariogen.make_trace("mobility_square", duration_s=max(16.0, n_frames / 30.0)).to_json()
+    return (session.ScenarioSpec.from_json(online_spec(name, n_frames, trace)),
+            session.SweepGrid.from_json(ADAPT_GRID))
+
+
+def online_scenarios(core, session, spec, grid, every: int):
+    """The online engine's scenarios for every ``every``-th grid point, as
+    run_sweep builds them."""
+    specs = [session._apply_point(spec, p) for p in grid.points()[::every]]
+    return [core.sim_online_batch.OnlineScenario(stream=s.stream, n_frames=s.n_frames, params=s.policy.params,
+                                                 rtt=s.trace.rtt_s, bw_segments=s.trace.segments()) for s in specs]
+
+
+def phase_online(torch, core, session, scenariogen, smi: str) -> None:
+    """The two batched_online policies through ``Session.run_sweep(mode=
+    "online")`` on the card: ONLINE_GOLDENS, the adaptivity grid against
+    the per-point loop, and at 900 frames against the host CPU."""
+    t_phase = time.perf_counter()
+    tol = core.audit.AUDIT_TOL
+
+    def batched(spec, grid):
+        report = session.Session(spec, device=DEVICE).run_sweep(grid, backend="batched", mode="online")
+        check(report.meta.get("engine") == "sim_online_batch", f"online sweep ran on {report.meta.get('engine')}")
+        return report
+
+    table = online_table(session, scenariogen, batched)
+    bad = sorted(n for n in ONLINE_GOLDENS if not online_agree(table.get(n, []), ONLINE_GOLDENS[n], tol))
+    for name in bad:
+        log(f"online: {name}: port {table.get(name)} reference {ONLINE_GOLDENS[name]}")
+    check(table.keys() == ONLINE_GOLDENS.keys(), f"online cases {sorted(table)} != ONLINE_GOLDENS")
+    check(not bad, f"online results differ from the reference's at {bad}")
+    bit_equal = sum(g == w for n in table for g, w in zip(table[n], ONLINE_GOLDENS[n]))
+    log(f"online: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
+        f"contract on device={DEVICE} ({bit_equal} bit-equal in every field, estimated_bps in all)")
+
+    for name in ONLINE_PARAMS:
+        spec, grid = adaptivity_case(session, scenariogen, name, ADAPT_FRAMES)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        first, s1 = timed(torch, lambda: batched(spec, grid))
+        second, s2 = timed(torch, lambda: batched(spec, grid))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20 if DEVICE == "cuda" else float("nan")
+        n = len(second.points)
+        check(n == len(ADAPT_GRID["deadline_ms"]) * len(ADAPT_GRID["rtt_ms"]), f"{name}: {n} points")
+        check(online_rows(first) == online_rows(second), f"{name}: two runs of the same online grid differ")
+        loop, s_loop = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(
+            grid, backend="reference", mode="online"))
+        check(online_agree(online_rows(second), online_rows(loop), tol),
+              f"{name}: the online engine differs from the per-point run_online loop")
+        groups = second.meta["groups"]
+        rounds = [g["rounds"] for g in groups]
+        reads = sum(g["host_reads"] for g in groups)
+        cap = core.sim_batch._UTIL_CAP  # max_utility's program statics: (width, exact, strict)
+        reruns = sum(g["lanes"] for g in groups if name == "max_utility" and g["statics"][0] == cap)
+        log(f"online: {name}: {n} points x {ADAPT_FRAMES} frames on device={DEVICE}: {1e3 * s1 / n:.3f} ms/point "
+            f"(first call), {1e3 * s2 / n:.3f} (second); per-point run_online loop on device={DEVICE} "
+            f"{1e3 * s_loop / n:.3f} ms/point, every point held to the contract (integer stats and rounds exact, "
+            f"accuracy within AUDIT_TOL, estimated_bps bit-equal); {len(groups)} groups (lanes "
+            f"{[g['lanes'] for g in groups]}), rounds per group mean {sum(rounds) / len(rounds):.1f} max "
+            f"{max(rounds)}, host reads per round {(reads - len(groups)) / sum(rounds):.3f} (+1 per group), "
+            f"lanes rerun at the cap {reruns}, peak card memory {peak:.1f} MiB above what earlier phases hold")
+
+        spec, grid = adaptivity_case(session, scenariogen, name, ADAPT_LONG_FRAMES)
+        long_run, s_long = timed(torch, lambda: batched(spec, grid))
+        scens = online_scenarios(core, session, spec, grid, ONLINE_CPU_EVERY)
+        cpu, s_cpu = timed(torch, lambda: core.sim_online_batch.simulate_online_batch(
+            name, list(spec.models), scens, device="cpu"))
+        card = long_run.points[::ONLINE_CPU_EVERY]
+        agree = sum(stats_rows(p.streams) == stats_rows([st]) and p.meta["rounds"] == m["rounds"]
+                    and p.meta["estimated_bps"] == m["estimated_bps"] for p, (st, m) in zip(card, cpu))
+        check(len(cpu) == len(card) and agree == len(cpu),
+              f"{name}: the card and the host CPU differ at {len(cpu) - agree} of {len(cpu)} online points")
+        groups = long_run.meta["groups"]
+        rounds = [g["rounds"] for g in groups]
+        log(f"online: {name}: {n} points x {ADAPT_LONG_FRAMES} frames on device={DEVICE}: "
+            f"{1e3 * s_long / n:.3f} ms/point; host CPU {1e3 * s_cpu / len(cpu):.3f} ms/point over {len(cpu)} "
+            f"points, bit-equal in every field; {len(groups)} groups, rounds per group max {max(rounds)}")
+    log(f"online: phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# 11. cache: the per-shape cache of captured lane programs
+# ---------------------------------------------------------------------------
+
+
+def program_keys(report) -> set:
+    """The distinct lane-program keys a sweep's shape groups ran: planner,
+    group key, the values its step reads as numbers, lane bucket."""
+    return {(g["policy"], json.dumps(g["key"]), json.dumps(g["statics"]), g["bucket"]) for g in report.meta["groups"]}
+
+
+def phase_cache(torch, core, session, smi: str) -> None:
+    """The sweep phase's 10,000-point max_utility grid in chunks of
+    CHUNK_SIZE: with the cache off (every chunk's groups capture their own
+    graphs, as before the cache), then on, twice."""
+    shard, counter = core.sweep_shard, core.compile_cache.CompileCounter
+    spec, grid = chunk_grid(session)
+    run = lambda: session.Session(spec, device=DEVICE).run_sweep(grid, chunk_size=CHUNK_SIZE)  # noqa: E731
+    with mock.patch.object(shard, "PROGRAMS", shard.LaneCache(0)), counter() as off:
+        uncached, s_off = timed(torch, run)
+    shard.PROGRAMS.clear()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    with counter() as cold:
+        cached, s_cold = timed(torch, run)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        held_reserved = (torch.cuda.memory_reserved() - reserved) / 2**20
+        held_allocated = (torch.cuda.memory_allocated() - allocated) / 2**20
+    else:
+        held_reserved = held_allocated = float("nan")
+    with counter() as warm:
+        again, s_warm = timed(torch, run)
+    rows = [stats_rows(p.streams) for p in uncached.points]
+    check(rows == [stats_rows(p.streams) for p in cached.points] == [stats_rows(p.streams) for p in again.points]
+          and uncached.meta["summary"] == cached.meta["summary"] == again.meta["summary"],
+          "the cached and uncached chunked sweeps differ")
+    graphs = DEVICE == "cuda"  # on the CPU a program holds buffers and no graph
+    n_groups, keys = len(uncached.meta["groups"]), program_keys(cached)
+    check((off.captures, off.hits) == (n_groups if graphs else 0, 0), f"uncached: {off}")
+    check((cold.captures, cold.misses) == (len(keys) if graphs else 0, len(keys)), f"cached, first call: {cold}")
+    check((warm.captures, warm.misses, warm.hits) == (0, 0, n_groups), f"cached, second call: {warm}")
+    log(f"cache: max_utility over {CHUNK_POINTS} points x {GOLD_FRAMES} frames in {uncached.meta['chunks']} chunks "
+        f"of {CHUNK_SIZE} on device={DEVICE}: {n_groups} shape groups, {len(keys)} distinct program keys; "
+        f"without the cache {off.captures} captures in {s_off:.3f} s; with it {cold.captures} captures, "
+        f"{cold.hits} hits in {s_cold:.3f} s, then {warm.captures} captures, {warm.hits} hits in {s_warm:.3f} s; "
+        f"results equal in every field; the cached programs hold {held_reserved:.1f} MiB reserved "
+        f"({held_allocated:.1f} MiB allocated: buffers and round state) in {len(shard.PROGRAMS)} programs ({smi})")
 
 
 # The reference's numbers for every case of sim_cases(), computed by
@@ -1308,6 +1544,44 @@ SWEEP_GOLDENS = {'jax_accuracy/constant': [[24, 0, 0, 0, 24, 0.0], [24, 0, 0, 0,
                        [24, 24, 0, 0, 8, 9.266573691647721], [24, 24, 0, 0, 8, 9.266573691647721],
                        [24, 24, 0, 0, 8, 9.266573691647721], [24, 24, 0, 8, 8, 11.226810434111659]]}
 
+# The reference's numbers for every case of online_cases(), from its per-point
+# run_online loop (tests/test_torch_online_goldens.py checks this table
+# against ``repro``): per point [frames total, processed, missed, offloaded,
+# planner calls, accuracy sum, rounds, estimated bps].
+ONLINE_GOLDENS = {'max_accuracy/dead': [[45, 45, 0, 0, 8, 20.979999999999997, 8, 0.0]],
+ 'max_accuracy/fault': [[180, 177, 3, 30, 47, 88.17999999999986, 47, 1110015.0],
+                        [180, 179, 1, 22, 42, 83.83999999999982, 42, 2218500.0]],
+ 'max_accuracy/lattice': [[90, 89, 1, 9, 25, 41.789999999999985, 25, 2421000.0],
+                          [90, 89, 1, 9, 25, 41.78999999999999, 25, 2421000.0],
+                          [90, 90, 0, 0, 23, 41.62999999999998, 23, 3150000.0],
+                          [90, 90, 0, 0, 23, 41.62999999999998, 23, 3150000.0],
+                          [90, 86, 4, 10, 23, 42.259999999999984, 23, 1303442.9999999995],
+                          [90, 86, 4, 10, 23, 42.259999999999984, 23, 1303442.9999999995],
+                          [90, 88, 2, 7, 20, 41.28999999999998, 20, 1910699.9999999995],
+                          [90, 88, 2, 7, 20, 41.28999999999998, 20, 1910699.9999999995],
+                          [90, 80, 10, 11, 24, 40.339999999999996, 24, 768049.0398548999],
+                          [90, 78, 12, 10, 25, 39.63999999999999, 25, 753634.3278984299],
+                          [90, 85, 5, 10, 21, 42.179999999999986, 21, 1128410.0999999996],
+                          [90, 85, 5, 10, 21, 42.179999999999986, 21, 1128410.0999999996]],
+ 'max_accuracy/square': [[45, 41, 4, 10, 15, 21.499999999999996, 15, 1303442.9999999995],
+                         [45, 43, 2, 7, 12, 20.639999999999997, 12, 1910699.9999999995]],
+ 'max_utility/fault': [[180, 143, 3, 15, 30, 73.31000000000006, 30, 1110015.0],
+                       [180, 144, 1, 14, 30, 71.6100000000001, 30, 2218500.0]],
+ 'max_utility/lattice': [[90, 90, 0, 0, 23, 41.73999999999998, 23, 3150000.0],
+                         [90, 78, 1, 2, 23, 37.56999999999998, 23, 2421000.0],
+                         [90, 90, 0, 0, 23, 41.73999999999998, 23, 3150000.0],
+                         [90, 76, 0, 0, 23, 36.769999999999975, 23, 3150000.0],
+                         [90, 87, 3, 4, 15, 41.209999999999994, 15, 1553490.0],
+                         [90, 69, 4, 5, 15, 35.419999999999995, 15, 1303443.0],
+                         [90, 89, 1, 4, 15, 41.919999999999995, 15, 2421000.0],
+                         [90, 70, 2, 4, 15, 35.12, 15, 1910699.9999999995],
+                         [90, 87, 3, 4, 13, 41.31999999999998, 13, 1553490.0],
+                         [90, 66, 8, 5, 13, 34.41, 13, 860084.6642999998],
+                         [90, 87, 3, 4, 13, 41.31999999999998, 13, 1553490.0],
+                         [90, 66, 5, 5, 13, 34.41, 13, 1128410.1]],
+ 'max_utility/square': [[45, 39, 3, 5, 8, 20.039999999999992, 8, 1553490.0],
+                        [45, 40, 2, 4, 8, 19.73999999999999, 8, 1910699.9999999995]]}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1357,6 +1631,14 @@ def main() -> int:
     sweep_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
     log(f"sweep: kernel launches (int8_matmul, flash_attention) {sweep_launches}")
     check(sweep_launches == (0, 0), "the sweep engine launched a model kernel")
+    for name, phase in (("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
+                        ("cache", lambda: phase_cache(torch, core, session, smi))):
+        torch.cuda.empty_cache()
+        ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+        phase()
+        launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+        log(f"{name}: kernel launches (int8_matmul, flash_attention) {launches}")
+        check(launches == (0, 0), f"the {name} phase launched a model kernel")
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + serving_int8

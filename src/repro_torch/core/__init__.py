@@ -20,11 +20,15 @@ Public surface:
                                 a device (policies jax_accuracy/jax_utility),
                                 their lane-batched forms and float64 twins
   sim_batch.simulate_batch    — scenario grids lane-batched on a device
+  sim_online_batch            — online (estimated-bandwidth) grids, the same way
+  sweep_shard                 — the sweep engines' per-shape cache of lane
+                                programs (captured CUDA graphs on the card)
+  compile_cache               — CompileCounter over that cache
   bucketing                   — the sweep engine's shape groups
   controller.OnlineController — streaming controller w/ bandwidth estimation
 
-The reference's fleet and online sweep engines (``sim_multi_batch``,
-``sim_online_batch``) are not ported yet.  Declarative scenario running
+The reference's fleet sweep engine (``sim_multi_batch``) is not ported
+yet.  Declarative scenario running
 (ScenarioSpec/Session) lives one level up in ``repro_torch.session``.
 """
 from . import (  # noqa: F401
@@ -32,6 +36,7 @@ from . import (  # noqa: F401
     baselines,
     brute_force,
     bucketing,
+    compile_cache,
     controller,
     edge_server,
     jax_sched,
@@ -41,7 +46,9 @@ from . import (  # noqa: F401
     registry,
     schedule,
     sim_batch,
+    sim_online_batch,
     simulator,
+    sweep_shard,
     tracking,
 )
 from .controller import BandwidthEstimator, OnlineController  # noqa: F401

@@ -11,9 +11,12 @@ every lane, (b) backtracks the argmax schedule, and (c) applies the shared
 audit contract of :mod:`repro_torch.core.audit`; lanes whose stream has
 ended are masked (``active = head < n_frames``) until the last lane of the
 group is done.  The round loop reads one value from the device per round,
-its termination test, and one more per group for the results.  On the card
-each group's round is captured once as a CUDA graph and replayed, so a
-round's thousand-odd small ops cost their device time, not their issue.
+its termination test, and one more per group for the results.  Each group
+runs as a :class:`~repro_torch.core.sweep_shard.LaneProgram`: on the card
+its round is captured once as a CUDA graph and replayed, so a round's
+thousand-odd small ops cost their device time, not their issue, and the
+program is kept for later groups of the same shape (later chunks, later
+sweeps).
 
 Exactness contract (held against the reference in
 ``tests/test_torch_sim_batch*.py``): for every scenario, the returned stats
@@ -48,12 +51,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import sweep_shard
 from .audit import AUDIT_TOL
 from .bucketing import quant_bins, quant_pow2, quant_w
 from .jax_sched import (
@@ -162,70 +166,29 @@ class _Run:
     policy: str
     groups: list[dict[str, Any]]
 
-    def put(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device: int32 widens to int64 (the index
-        dtype of gather), floats keep their dtype."""
-        a = np.asarray(a)
-        if a.dtype.kind in "iu":
-            a = a.astype(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-    def zeros(self, B: int, dtype: torch.dtype) -> torch.Tensor:
-        return torch.zeros(B, dtype=dtype, device=self.device)
-
-    def drive(self, key: Any, step, state: tuple, n_frames: torch.Tensor) -> tuple[tuple, dict]:
-        """Run ``step`` until no lane is active (``state[0]`` is ``head``).
-        The test after each round is that round's one read from the device;
-        a lane with no frames is inactive from the start, so a group always
-        runs at least one round.  On the card the round runs as a CUDA
-        graph (:func:`_graphed`)."""
-        record = {"policy": self.policy, "key": key, "lanes": int(n_frames.shape[0]),
+    def drive(self, key: Any, lanes: Mapping[str, Any], shared: Mapping[str, Any], build,
+              statics: tuple = ()) -> tuple[tuple, dict]:
+        """Run one shape group to the end: its lane program (built by
+        ``build``, or taken from :data:`~repro_torch.core.sweep_shard.PROGRAMS`
+        with this group's ``lanes`` and ``shared`` inputs loaded into it) runs
+        rounds until no lane is active.  ``statics`` are the values other than
+        ``key`` that the step reads as Python numbers.  Returns the final state
+        (padded lanes included) and the group's record."""
+        prog, cached = sweep_shard.PROGRAMS.program(
+            (self.policy, key, statics), self.device, lanes, shared, build)
+        record = {"policy": self.policy, "key": key, "statics": list(statics), "lanes": len(lanes["n_frames"]),
+                  "bucket": prog.buffers["n_frames"].shape[0], "cached": cached,
                   "rounds": 0, "host_reads": 0, "reruns": 0}
         self.groups.append(record)
-        if self.device.type == "cuda":
-            step, state = _graphed(step, state)
-        while True:
-            state = step(state)
-            record["rounds"] += 1
-            record["host_reads"] += 1
-            if not bool((state[0] < n_frames).any()):
-                return state, record
+        return sweep_shard.run_sharded(prog, record), record
 
     @staticmethod
     def read(record: dict, *parts: torch.Tensor) -> list[np.ndarray]:
-        """The group's results in one copy to the host (integers below 2^53
-        travel exactly as float64)."""
+        """The group's results for its real lanes in one copy to the host
+        (integers below 2^53 travel exactly as float64)."""
         record["host_reads"] += 1
         host = torch.stack([p.to(torch.float64) for p in parts]).cpu().numpy()
-        return list(host)
-
-
-def _graphed(step, state: tuple):
-    """``step`` captured once as a CUDA graph that updates the round state
-    in place, and a copy of ``state`` for it to update.
-
-    A round is a few hundred to a few thousand small ops, and eagerly each
-    costs its host issue, ~10x its time on the card; a replay issues them
-    all at once.  Every shape in a round is fixed for the group, and a
-    round never reads from the device, so the captured round is the round.
-    Returns ``(replay, state)``: ``replay(state)`` runs one round."""
-    static = tuple(t.clone() for t in state)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture (library handles, allocator)
-        step(static)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for dst, src in zip(static, step(static)):
-            dst.copy_(src)
-
-    def replay(st: tuple) -> tuple:  # st is ``static``, updated in place
-        graph.replay()
-        return st
-
-    replay.graph = graph  # keeps the graph (and its memory pool) alive with the closure
-    return replay, static
+        return list(host[:, : record["lanes"]])
 
 
 def _window_frames(stream: StreamSpec, params: Mapping[str, Any]) -> int:
@@ -381,12 +344,15 @@ def _backtrack_slots(parents, actions, u_final):
     return torch.cat(picks, dim=1)
 
 
-def _init_state(run: _Run, B: int, n_int: int, n_float: int) -> tuple:
-    """Round-loop state: ``head`` (int64) and ``busy`` (f64), then
-    ``n_float`` float64 and ``n_int`` int64 zeros, one per lane each."""
-    return ((run.zeros(B, torch.int64), run.zeros(B, torch.float64))
-            + tuple(run.zeros(B, torch.float64) for _ in range(n_float))
-            + tuple(run.zeros(B, torch.int64) for _ in range(n_int)))
+def _init_state(b, n_int: int, n_float: int) -> tuple:
+    """Round-loop state of a program's ``b.B`` lanes: ``head`` (int64) and
+    ``busy`` (f64), then ``n_float`` float64 and ``n_int`` int64 zeros."""
+    def zeros(dtype):
+        return torch.zeros(b.B, dtype=dtype, device=b.device)
+
+    return ((zeros(torch.int64), zeros(torch.float64))
+            + tuple(zeros(torch.float64) for _ in range(n_float))
+            + tuple(zeros(torch.int64) for _ in range(n_int)))
 
 
 # ---------------------------------------------------------------------------
@@ -412,41 +378,45 @@ def _run_accuracy(models, scenarios, strict, run: _Run):
             dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
         dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
         t_start = time.perf_counter()
-        P = run.put
-        gamma, deadline, grid_t = P(c.gamma), P(c.deadline), P(grid)
-        n_active, nbins_r, n_frames = P(c.n_active), P(nbins_real), P(c.n_frames)
-        arr_t, dl_t, dur_t, arrivals = P(arr_bins), P(dl_bins), P(dur), P(c.arrivals)
-        acc_stat, t_npu64, acc32 = P(c.acc_stat64), P(c.t_npu64), P(c.acc_dp32)
-        ks = torch.arange(c.W, device=run.device)
 
-        def step(state):
-            head, busy, acc_sum, npu_s, proc, miss, rounds = state
-            active = head < n_frames
-            t0 = head.double() * gamma
-            npu_free = torch.clamp_min(busy - t0, 0.0)
-            # Reference: int(np.ceil(max(npu_free, 0.0) / grid)), clipped to
-            # the scenario's REAL bin count (not the padded one).
-            start_bin = torch.ceil(npu_free.clamp_min(0.0) / grid_t).long()
-            start_bin = torch.minimum(start_bin.clamp_min(0), nbins_r - 1)
-            H, choices, parents = _accuracy_dp(dur_t, acc32, arr_t, dl_t, start_bin, n_active,
-                                                     nbins=NBINS)
-            feasible = H.amax(dim=1) > NEG / 2
-            picks = _backtrack_bins(choices, parents, torch.argmax(H, dim=1))
-            gate = (active & feasible)[:, None] & (ks < n_active[:, None])
-            free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-                head=head, n_frames=n_frames, arrivals=arrivals, deadline=deadline, t_npu64=t_npu64,
-                acc_stat=acc_stat, picks=picks, gate=gate, free0=npu_free.clamp_min(0.0),
-                acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s, strict=strict)
-            # Infeasible window: the reference emits a horizon-1 SKIP round
-            # that leaves the NPU carry untouched.
-            busy_until = torch.where(feasible, free_end, npu_free)
-            horizon = torch.where(feasible, n_active, 1)
-            head = torch.where(active, head + horizon, head)
-            busy = torch.where(active, t0 + busy_until, busy)
-            rounds = rounds + active.long()
-            return head, busy, acc_sum, npu_s, proc, miss, rounds
+        def build(b):
+            ks = torch.arange(W, device=b.device)
 
-        state, record = run.drive(W, step, _init_state(run, c.B, 3, 2), n_frames)
+            def step(state):
+                head, busy, acc_sum, npu_s, proc, miss, rounds = state
+                active = head < b.n_frames
+                t0 = head.double() * b.gamma
+                npu_free = torch.clamp_min(busy - t0, 0.0)
+                # Reference: int(np.ceil(max(npu_free, 0.0) / grid)), clipped
+                # to the scenario's REAL bin count (not the padded one).
+                start_bin = torch.ceil(npu_free.clamp_min(0.0) / b.grid).long()
+                start_bin = torch.minimum(start_bin.clamp_min(0), b.nbins_r - 1)
+                H, choices, parents = _accuracy_dp(b.dur, b.acc32, b.arr, b.dl, start_bin, b.n_active,
+                                                   nbins=NBINS)
+                feasible = H.amax(dim=1) > NEG / 2
+                picks = _backtrack_bins(choices, parents, torch.argmax(H, dim=1))
+                gate = (active & feasible)[:, None] & (ks < b.n_active[:, None])
+                free_end, acc_sum, proc, miss, npu_s = _audit_scan(
+                    head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
+                    t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
+                    free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
+                    strict=strict)
+                # Infeasible window: the reference emits a horizon-1 SKIP
+                # round that leaves the NPU carry untouched.
+                busy_until = torch.where(feasible, free_end, npu_free)
+                horizon = torch.where(feasible, b.n_active, 1)
+                head = torch.where(active, head + horizon, head)
+                busy = torch.where(active, t0 + busy_until, busy)
+                rounds = rounds + active.long()
+                return head, busy, acc_sum, npu_s, proc, miss, rounds
+
+            return step, lambda: _init_state(b, 3, 2)
+
+        state, record = run.drive(
+            W, dict(gamma=c.gamma, deadline=c.deadline, grid=grid, n_active=c.n_active, nbins_r=nbins_real,
+                    n_frames=c.n_frames, arr=arr_bins, dl=dl_bins, dur=dur, arrivals=c.arrivals,
+                    acc_stat=c.acc_stat64),
+            dict(t_npu64=c.t_npu64, acc32=c.acc_dp32), build, statics=(NBINS, strict))
         _, _, acc_sum, npu_s, proc, miss, rounds = state
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s)
         return _collect(c, out, time.perf_counter() - t_start)
@@ -469,34 +439,39 @@ def _run_utility(models, scenarios, strict, run: _Run):
         # The f32 casts the one-stream wrapper performs, in bulk.
         window = np.maximum(c.n_active.astype(np.float64) * c.gamma, c.gamma)
         t_start = time.perf_counter()
-        P = run.put
-        gamma, deadline, n_active, n_frames = P(c.gamma), P(c.deadline), P(c.n_active), P(c.n_frames)
-        g32, d32 = P(c.gamma.astype(np.float32)), P(c.deadline.astype(np.float32))
-        a32, w32 = P(alpha.astype(np.float32)), P(window.astype(np.float32))
-        zero32 = run.zeros(c.B, torch.float32)
-        arrivals, acc_stat = P(c.arrivals), P(c.acc_stat64)
-        t_npu64, t_npu32, acc32 = P(c.t_npu64), P(c.t_npu64.astype(np.float32)), P(c.acc_dp32)
 
-        def step(state):
-            head, busy, acc_sum, npu_s, proc, miss, rounds = state
-            active = head < n_frames
-            t0 = head.double() * gamma
-            npu_free = torch.clamp_min(busy - t0, 0.0)
-            (_, u, _, _), parents, actions = _utility_dp(
-                t_npu32, acc32, n_active, width=width, gamma=g32, deadline=d32, alpha=a32,
-                npu_free=npu_free.float(), first_arrival=zero32, window=w32, n_frames=W)
-            picks = _backtrack_slots(parents, actions, u)
-            gate = active[:, None] & (picks >= 0)  # only picked frames execute; rest SKIP
-            free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-                head=head, n_frames=n_frames, arrivals=arrivals, deadline=deadline, t_npu64=t_npu64,
-                acc_stat=acc_stat, picks=picks, gate=gate, free0=npu_free.clamp_min(0.0),
-                acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s, strict=strict)
-            head = torch.where(active, head + n_active, head)  # horizon is always n
-            busy = torch.where(active, t0 + free_end, busy)
-            rounds = rounds + active.long()
-            return head, busy, acc_sum, npu_s, proc, miss, rounds
+        def build(b):
+            zero32 = torch.zeros(b.B, dtype=torch.float32, device=b.device)
 
-        state, record = run.drive(key, step, _init_state(run, c.B, 3, 2), n_frames)
+            def step(state):
+                head, busy, acc_sum, npu_s, proc, miss, rounds = state
+                active = head < b.n_frames
+                t0 = head.double() * b.gamma
+                npu_free = torch.clamp_min(busy - t0, 0.0)
+                (_, u, _, _), parents, actions = _utility_dp(
+                    b.t_npu32, b.acc32, b.n_active, width=width, gamma=b.g32, deadline=b.d32, alpha=b.a32,
+                    npu_free=npu_free.float(), first_arrival=zero32, window=b.w32, n_frames=W)
+                picks = _backtrack_slots(parents, actions, u)
+                gate = active[:, None] & (picks >= 0)  # only picked frames execute; rest SKIP
+                free_end, acc_sum, proc, miss, npu_s = _audit_scan(
+                    head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
+                    t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
+                    free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
+                    strict=strict)
+                head = torch.where(active, head + b.n_active, head)  # horizon is always n
+                busy = torch.where(active, t0 + free_end, busy)
+                rounds = rounds + active.long()
+                return head, busy, acc_sum, npu_s, proc, miss, rounds
+
+            return step, lambda: _init_state(b, 3, 2)
+
+        state, record = run.drive(
+            key, dict(gamma=c.gamma, deadline=c.deadline, n_active=c.n_active, n_frames=c.n_frames,
+                      g32=c.gamma.astype(np.float32), d32=c.deadline.astype(np.float32),
+                      a32=alpha.astype(np.float32), w32=window.astype(np.float32), arrivals=c.arrivals,
+                      acc_stat=c.acc_stat64),
+            dict(t_npu64=c.t_npu64, t_npu32=c.t_npu64.astype(np.float32), acc32=c.acc_dp32), build,
+            statics=(strict,))
         _, _, acc_sum, npu_s, proc, miss, rounds = state
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s)
         return _collect(c, out, time.perf_counter() - t_start)
@@ -569,29 +544,37 @@ def _net_group_key(s: BatchScenario) -> tuple[int, int]:
     return (quant_w(_window_frames(s.stream, s.params)), len(s.stream.resolutions))
 
 
+def _net_lanes(models, group) -> dict[str, np.ndarray]:
+    """A group's network model and offload tables, per lane: rtt, the padded
+    bandwidth segments, frame payload bits [B, R] and server accuracy
+    [B, J, R]."""
+    bw_t, bw_v, _ = segment_arrays([s.bw_segments for s in group])
+    nbits8, acc_sv = _offload_tables(models, group)
+    return dict(rtt=np.array([s.rtt for s in group], np.float64), bw_t=bw_t, bw_v=bw_v, nbits8=nbits8,
+                acc_sv=acc_sv)
+
+
 class _Net:
-    """A group's network model and offload tables on the device."""
+    """A program's network model and offload tables (its buffers)."""
 
-    def __init__(self, run: _Run, models, group):
-        bw_t, bw_v, _ = segment_arrays([s.bw_segments for s in group])
-        nbits8, acc_sv = _offload_tables(models, group)
-        P = run.put
-        self.rtt = P(np.array([s.rtt for s in group], np.float64))
-        self.bw_t, self.bw_v = P(bw_t), P(bw_v)
-        self.nbits8, self.acc_sv = P(nbits8), P(acc_sv)  # [B, R], [B, J, R]
-        self.t_srv = P(np.array([m.t_server for m in models], np.float64))
-        self.inf = torch.full((), float("inf"), dtype=torch.float64, device=run.device)
+    def __init__(self, b):
+        self.bw_t, self.bw_v, self.nbits8, self.acc_sv, self.t_srv = b.bw_t, b.bw_v, b.nbits8, b.acc_sv, b.t_srv
+        self.inf = torch.full((), float("inf"), dtype=torch.float64, device=b.device)
 
-    def upload(self, t0: torch.Tensor) -> torch.Tensor:
-        """Upload time [B, R] of each resolution at the bandwidth of ``t0``."""
-        bw0 = _trace_bw(self.bw_t, self.bw_v, t0)[:, None]
-        return torch.where(bw0 > 0.0, self.nbits8 / bw0, self.inf)
+    def bandwidth(self, t: torch.Tensor) -> torch.Tensor:
+        """The true bandwidth [B] at times ``t`` (the reference's ``trace.at``)."""
+        return _trace_bw(self.bw_t, self.bw_v, t)
 
-    def best_server(self, t_up: torch.Tensor, deadline: torch.Tensor):
-        """The reference's per-resolution server choice: the first most
-        accurate model that fits the budget.  Returns ``(j_best, a_best,
-        r_ok)``, each [B, R]."""
-        budget = (deadline[:, None] - t_up) - self.rtt[:, None]  # [B, R]
+    def upload(self, bw: torch.Tensor) -> torch.Tensor:
+        """Upload time [B, R] of each resolution at bandwidth ``bw`` [B]."""
+        bw = bw[:, None]
+        return torch.where(bw > 0.0, self.nbits8 / bw, self.inf)
+
+    def best_server(self, t_up: torch.Tensor, deadline: torch.Tensor, rtt: torch.Tensor):
+        """The reference's per-resolution server choice under round trip
+        ``rtt`` [B]: the first most accurate model that fits the budget.
+        Returns ``(j_best, a_best, r_ok)``, each [B, R]."""
+        budget = (deadline[:, None] - t_up) - rtt[:, None]  # [B, R]
         fits = self.t_srv[None, :, None] <= budget[:, None, :]  # [B, J, R]
         a_cand = torch.where(fits, self.acc_sv, -self.inf)
         j_best = torch.argmax(a_cand, dim=1)  # first max
@@ -609,113 +592,180 @@ def _lanes2(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x])
 
 
+class _Plan(NamedTuple):
+    """A network-aware round's decision, per lane: offload the head frame
+    (at resolution ``r_off`` to server model ``j_off``, upload ``t_up_off``,
+    server accuracy ``srv_acc``) and/or run ``picks`` on the NPU for the
+    first ``nn`` frames of the window; ``horizon`` frames are consumed.
+    ``ovf`` flags a Max-Utility front that outgrew its width."""
+
+    use_off: torch.Tensor
+    use_loc: torch.Tensor
+    r_off: torch.Tensor
+    j_off: torch.Tensor
+    t_up_off: torch.Tensor
+    srv_acc: torch.Tensor
+    picks: torch.Tensor
+    nn: torch.Tensor
+    horizon: torch.Tensor
+    ovf: torch.Tensor | None = None
+
+
+def _accuracy_planner(b, W: int, NBINS: int):
+    """Max-Accuracy's planning phase over a program's buffers:
+    ``plan(npu_free, t_up, rtt) -> _Plan`` from the upload times [B, R] and
+    the round trip [B] the planner believes (the trace and the true RTT in
+    the sweep engine, the estimator's belief in the online engine)."""
+    B = b.B
+    net = _Net(b)
+    ks = torch.arange(W, device=b.device)
+    lanes = torch.arange(B, device=b.device)
+    neg = torch.full((), NEG, dtype=torch.float64, device=b.device)
+
+    def plan(npu_free, t_up, rtt):
+        gamma, deadline, grid_t = b.gamma, b.deadline, b.grid
+        start_bin = torch.ceil(npu_free.clamp_min(0.0) / grid_t).long()
+        j_best, a_best, r_ok = net.best_server(t_up, deadline, rtt)
+        n_l = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None])
+        n_l = n_l.clamp(0, W).long()  # [B, R]
+        # Both DP instances as one over 2B lanes: local first, offload second.
+        cho, par, mh, ab, alive = _accuracy_dp64(
+            torch.cat([b.dur, b.dur]), b.acc_dp, torch.cat([b.arr0, b.arr1]), torch.cat([b.dl0, b.dl1]),
+            _lanes2(start_bin), nbins=NBINS)
+        mh0, mh1 = mh[:B], mh[B:]
+        # The reference sizes each DP instance at ceil(horizon/grid)+2 bins
+        # and declares start_bin >= nbins infeasible; rebuild that
+        # per-candidate bound from the shared prefix records.
+        nlm1 = (n_l - 1).clamp(0, W - 1)
+        nb1 = torch.ceil(((gamma[:, None] + _no_fma((n_l.double() - 1.0) * gamma[:, None]))
+                          + deadline[:, None]) / grid_t[:, None]).long() + 2
+        dp_ok = torch.where(n_l == 0, True, alive[B:].gather(1, nlm1) & (start_bin[:, None] < nb1))
+        dp_tot = torch.where(n_l == 0, 0.0, mh1.gather(1, nlm1))
+        feas = r_ok & dp_ok
+        norm = torch.where(feas, (a_best + dp_tot) / (n_l + 1).double(), neg)
+        r_star = torch.argmax(norm, dim=1)  # first max = lowest r
+        off_exists = _pick(feas, r_star)
+        off_norm = _pick(norm, r_star)
+        # local_window_plan tries nn = n..1 and keeps the first feasible;
+        # aliveness is prefix-monotone, so that is the leading-alive count
+        # (and the start_bin bound only loosens as nn grows).
+        A = (alive[:B] & (ks < b.n_active[:, None])).sum(dim=1)
+        nb0 = torch.ceil((_no_fma((A.double() - 1.0) * gamma) + deadline) / grid_t).long() + 2
+        loc_exists = (A >= 1) & (start_bin < nb0)
+        a_last = (A - 1).clamp(0, W - 1)
+        loc_norm = torch.where(loc_exists, _pick(mh0, a_last) / A.double(), neg)
+        use_loc = loc_exists & (loc_norm > torch.where(off_exists, off_norm, neg))
+        use_off = off_exists & ~use_loc
+        n_off = _pick(n_l, r_star)
+        nn = torch.where(use_off, n_off, torch.where(use_loc, A, 0))
+        # Backtrack both DPs at once: the local lanes from their last alive
+        # frame, the offload lanes from frame n_l(r*) - 1.
+        b0 = torch.cat([_pick(ab[:B], a_last), _pick(ab[B:], _pick(nlm1, r_star))])
+        upto = torch.cat([torch.where(use_loc, nn, 0), torch.where(use_off, nn, 0)])
+        picks2 = _backtrack_bins(cho, par, b0, upto)
+        picks = torch.where(use_off[:, None], picks2[B:], picks2[:B])
+        j_srv = _pick(j_best, r_star)
+        return _Plan(use_off, use_loc, r_star, j_srv, _pick(t_up, r_star), net.acc_sv[lanes, j_srv, r_star],
+                     picks, nn, torch.where(use_off, n_off + 1, torch.where(use_loc, A, 1)))
+
+    return plan
+
+
+def _accuracy_inputs(models, c: _Common, group) -> tuple[dict, int]:
+    """Max-Accuracy's per-lane inputs beyond the network model, and the
+    group's bin count.  Bin arithmetic in f64 on the host — the same numpy
+    expressions as ``max_accuracy.local_dp``, for both first_arrival values
+    (0: the pure local window; gamma: the frames buffered behind an
+    offload)."""
+    grid = np.array([float(s.params["grid"]) for s in group], np.float64)
+    arr0 = np.ceil(c.arrivals / grid[:, None]).astype(np.int32)
+    dl0 = np.floor((c.arrivals + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
+    arrivals1 = c.gamma[:, None] + c.arrivals
+    arr1 = np.ceil(arrivals1 / grid[:, None]).astype(np.int32)
+    dl1 = np.floor((arrivals1 + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
+    horizon_t = c.gamma + (c.n_active.astype(np.float64) - 1.0) * c.gamma + c.deadline
+    NBINS = quant_bins(int((np.ceil(horizon_t / grid) + 2).max()))
+    with np.errstate(invalid="ignore"):
+        dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
+    dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
+    return dict(_base_lanes(c), grid=grid, arr0=arr0, dl0=dl0, arr1=arr1, dl1=dl1, dur=dur,
+                **_net_lanes(models, group)), NBINS
+
+
+def _base_lanes(c: _Common) -> dict[str, np.ndarray]:
+    return dict(gamma=c.gamma, deadline=c.deadline, n_active=c.n_active, n_frames=c.n_frames,
+                arrivals=c.arrivals, acc_stat=c.acc_stat64)
+
+
+def _shared(models, c: _Common) -> dict[str, np.ndarray]:
+    """The network planners' model tables."""
+    return dict(t_npu64=c.t_npu64, acc_dp=c.acc_dp64, t_srv=np.array([m.t_server for m in models], np.float64))
+
+
+def _server_audit(p: _Plan, *, active, rtt, t_srv, deadline, strict, acc_sum, proc, miss, offl):
+    """The head-frame offload of a planned round, audited at the planned
+    upload time (decision order: SERVER first, then the NPU frames)."""
+    srv_fin = (p.t_up_off + rtt) + t_srv[p.j_off]
+    if strict:
+        srv_bad = p.use_off & (srv_fin > deadline + AUDIT_TOL)
+    else:
+        srv_bad = torch.zeros_like(p.use_off)
+    srv_take = active & p.use_off & ~srv_bad
+    acc_sum = acc_sum + torch.where(srv_take, p.srv_acc, 0.0)
+    proc = proc + srv_take.long()
+    offl = offl + srv_take.long()
+    miss = miss + (active & srv_bad).long()
+    return acc_sum, proc, miss, offl
+
+
+def _npu_audit(b, p: _Plan, ks, *, active, head, busy, t0, npu_free, acc_sum, proc, miss, npu_s, rounds,
+               strict):
+    """The NPU frames of a planned round (the audit fold, after the head
+    offload when there is one), then the round's carry: head, NPU busy
+    time, round count."""
+    fa = torch.where(p.use_off, b.gamma, 0.0)
+    gate = (active[:, None] & (p.picks >= 0)) & (ks < p.nn[:, None])
+    free_end, acc_sum, proc, miss, npu_s = _audit_scan(
+        head=head, frame_offset=p.use_off.long(), n_frames=b.n_frames, arrivals=fa[:, None] + b.arrivals,
+        deadline=b.deadline, t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=p.picks, gate=gate,
+        free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s, strict=strict)
+    busy_until = torch.where(p.use_off | p.use_loc, free_end, npu_free)
+    head = torch.where(active, head + p.horizon, head)
+    busy = torch.where(active, t0 + busy_until, busy)
+    rounds = rounds + active.long()
+    return head, busy, acc_sum, proc, miss, npu_s, rounds
+
+
 @_planner("max_accuracy")
 def _run_max_accuracy(models, scenarios, strict, run: _Run):
     def run_group(key, group):
         W, _ = key
         c = _common(models, group, W)
-        B = c.B
-        grid = np.array([float(s.params["grid"]) for s in group], np.float64)
-        # Bin arithmetic in f64 on the host — the same numpy expressions as
-        # max_accuracy.local_dp, for both first_arrival values (0: the pure
-        # local window; gamma: the frames buffered behind an offload).
-        arr0 = np.ceil(c.arrivals / grid[:, None]).astype(np.int32)
-        dl0 = np.floor((c.arrivals + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
-        arrivals1 = c.gamma[:, None] + c.arrivals
-        arr1 = np.ceil(arrivals1 / grid[:, None]).astype(np.int32)
-        dl1 = np.floor((arrivals1 + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
-        horizon_t = c.gamma + (c.n_active.astype(np.float64) - 1.0) * c.gamma + c.deadline
-        NBINS = quant_bins(int((np.ceil(horizon_t / grid) + 2).max()))
-        with np.errstate(invalid="ignore"):
-            dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
-        dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
+        lanes, NBINS = _accuracy_inputs(models, c, group)
         t_start = time.perf_counter()
-        P = run.put
-        net = _Net(run, models, group)
-        gamma, deadline, grid_t = P(c.gamma), P(c.deadline), P(grid)
-        n_active, n_frames = P(c.n_active), P(c.n_frames)
-        # Both DP instances as one over 2B lanes: local first, offload second.
-        arr2, dl2 = P(np.concatenate([arr0, arr1])), P(np.concatenate([dl0, dl1]))
-        dur2 = P(np.concatenate([dur, dur]))
-        arrivals, acc_stat = P(c.arrivals), P(c.acc_stat64)
-        t_npu64, acc_dp_t = P(c.t_npu64), P(c.acc_dp64)
-        ks = torch.arange(W, device=run.device)
-        lanes = torch.arange(B, device=run.device)
-        neg = torch.full((), NEG, dtype=torch.float64, device=run.device)
 
-        def step(state):
-            head, busy, acc_sum, npu_s, proc, miss, offl, rounds = state
-            active = head < n_frames
-            t0 = _no_fma(head.double() * gamma)
-            npu_free = torch.clamp_min(busy - t0, 0.0)
-            start_bin = torch.ceil(npu_free.clamp_min(0.0) / grid_t).long()
-            t_up = net.upload(t0)  # the reference's trace.at(t0)
-            j_best, a_best, r_ok = net.best_server(t_up, deadline)
-            n_l = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None])
-            n_l = n_l.clamp(0, W).long()  # [B, R]
-            cho, par, mh, ab, alive = _accuracy_dp64(dur2, acc_dp_t, arr2, dl2, _lanes2(start_bin),
-                                                     nbins=NBINS)
-            mh0, mh1 = mh[:B], mh[B:]
-            # The reference sizes each DP instance at ceil(horizon/grid)+2
-            # bins and declares start_bin >= nbins infeasible; rebuild that
-            # per-candidate bound from the shared prefix records.
-            nlm1 = (n_l - 1).clamp(0, W - 1)
-            nb1 = torch.ceil(((gamma[:, None] + _no_fma((n_l.double() - 1.0) * gamma[:, None]))
-                              + deadline[:, None]) / grid_t[:, None]).long() + 2
-            dp_ok = torch.where(n_l == 0, True, alive[B:].gather(1, nlm1) & (start_bin[:, None] < nb1))
-            dp_tot = torch.where(n_l == 0, 0.0, mh1.gather(1, nlm1))
-            feas = r_ok & dp_ok
-            norm = torch.where(feas, (a_best + dp_tot) / (n_l + 1).double(), neg)
-            r_star = torch.argmax(norm, dim=1)  # first max = lowest r
-            off_exists = _pick(feas, r_star)
-            off_norm = _pick(norm, r_star)
-            # local_window_plan tries nn = n..1 and keeps the first feasible;
-            # aliveness is prefix-monotone, so that is the leading-alive
-            # count (and the start_bin bound only loosens as nn grows).
-            A = (alive[:B] & (ks < n_active[:, None])).sum(dim=1)
-            nb0 = torch.ceil((_no_fma((A.double() - 1.0) * gamma) + deadline) / grid_t).long() + 2
-            loc_exists = (A >= 1) & (start_bin < nb0)
-            a_last = (A - 1).clamp(0, W - 1)
-            loc_norm = torch.where(loc_exists, _pick(mh0, a_last) / A.double(), neg)
-            use_loc = loc_exists & (loc_norm > torch.where(off_exists, off_norm, neg))
-            use_off = off_exists & ~use_loc
-            n_off = _pick(n_l, r_star)
-            nn = torch.where(use_off, n_off, torch.where(use_loc, A, 0))
-            # Backtrack both DPs at once: the local lanes from their last
-            # alive frame, the offload lanes from frame n_l(r*) - 1.
-            b0 = torch.cat([_pick(ab[:B], a_last), _pick(ab[B:], _pick(nlm1, r_star))])
-            upto = torch.cat([torch.where(use_loc, nn, 0), torch.where(use_off, nn, 0)])
-            picks2 = _backtrack_bins(cho, par, b0, upto)
-            picks = torch.where(use_off[:, None], picks2[B:], picks2[:B])
+        def build(b):
+            plan = _accuracy_planner(b, W, NBINS)
+            net = _Net(b)
+            ks = torch.arange(W, device=b.device)
 
-            # Head-frame offload first: decision order is SERVER, then NPUs.
-            j_srv = _pick(j_best, r_star)
-            srv_fin = (_pick(t_up, r_star) + net.rtt) + net.t_srv[j_srv]
-            if strict:
-                srv_bad = use_off & (srv_fin > deadline + AUDIT_TOL)
-            else:
-                srv_bad = torch.zeros_like(use_off)
-            srv_take = active & use_off & ~srv_bad
-            acc_sum = acc_sum + torch.where(srv_take, net.acc_sv[lanes, j_srv, r_star], 0.0)
-            proc = proc + srv_take.long()
-            offl = offl + srv_take.long()
-            miss = miss + (active & srv_bad).long()
+            def step(state):
+                head, busy, acc_sum, npu_s, proc, miss, offl, rounds = state
+                active = head < b.n_frames
+                t0 = _no_fma(head.double() * b.gamma)
+                npu_free = torch.clamp_min(busy - t0, 0.0)
+                p = plan(npu_free, net.upload(net.bandwidth(t0)), b.rtt)  # the reference's trace.at(t0)
+                acc_sum, proc, miss, offl = _server_audit(
+                    p, active=active, rtt=b.rtt, t_srv=b.t_srv, deadline=b.deadline, strict=strict,
+                    acc_sum=acc_sum, proc=proc, miss=miss, offl=offl)
+                head, busy, acc_sum, proc, miss, npu_s, rounds = _npu_audit(
+                    b, p, ks, active=active, head=head, busy=busy, t0=t0, npu_free=npu_free, acc_sum=acc_sum,
+                    proc=proc, miss=miss, npu_s=npu_s, rounds=rounds, strict=strict)
+                return head, busy, acc_sum, npu_s, proc, miss, offl, rounds
 
-            fa = torch.where(use_off, gamma, 0.0)
-            gate = (active[:, None] & (picks >= 0)) & (ks < nn[:, None])
-            free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-                head=head, frame_offset=use_off.long(), n_frames=n_frames, arrivals=fa[:, None] + arrivals,
-                deadline=deadline, t_npu64=t_npu64, acc_stat=acc_stat, picks=picks, gate=gate,
-                free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
-                strict=strict)
-            busy_until = torch.where(use_off | use_loc, free_end, npu_free)
-            horizon = torch.where(use_off, n_off + 1, torch.where(use_loc, A, 1))
-            head = torch.where(active, head + horizon, head)
-            busy = torch.where(active, t0 + busy_until, busy)
-            rounds = rounds + active.long()
-            return head, busy, acc_sum, npu_s, proc, miss, offl, rounds
+            return step, lambda: _init_state(b, 4, 2)
 
-        state, record = run.drive(key, step, _init_state(run, B, 4, 2), n_frames)
+        state, record = run.drive(key, lanes, _shared(models, c), build, statics=(NBINS, strict))
         _, _, acc_sum, npu_s, proc, miss, offl, rounds = state
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s, offl)
         return _collect(c, out[:5], time.perf_counter() - t_start, offloaded=out[5])
@@ -759,78 +809,87 @@ def _run_track(models, scenarios, strict, run: _Run, *, fixed: bool):
         for i, s in enumerate(group):
             ret_pow[i, :] = retention_powers(s.workload.retention, A)
         t_start = time.perf_counter()
-        P = run.put
-        net = _Net(run, models, group)
-        gamma, deadline, n_frames = P(c.gamma), P(c.deadline), P(c.n_frames)
-        k_lim_t, im_t, ret_t = P(k_lim), P(im), P(ret_pow)
-        acc_stat, t_npu64 = P(c.acc_stat64), P(c.t_npu64)
-        inf = net.inf
-        local = torch.isfinite(t_npu64)[None, :]  # [1, J]
 
-        def step(state):
-            head, busy, det_acc, acc_sum, npu_s, det_frm, proc, miss, offl, rounds = state
-            active = head < n_frames
-            t0 = _no_fma(head.double() * gamma)
-            npu_free = torch.clamp_min(busy - t0, 0.0)
-            # NPU candidates: j ascending (the concatenation order below).
-            kf = torch.where(local, torch.ceil(t_npu64[None, :] / gamma[:, None]), 0.0)
-            k_npu = torch.clamp_min(kf.long(), 1)  # [B, J] npu_interval
-            feas_npu = local & ((npu_free[:, None] + t_npu64) <= deadline[:, None]) & (k_npu <= k_lim_t[:, None])
-            # Offload candidates: the reference's _server_candidates, r asc.
-            t_up = net.upload(t0)
-            j_best, a_best, r_ok = net.best_server(t_up, deadline)
-            k_srv = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None]).long() + 1
-            feas_srv = r_ok & (k_srv <= k_lim_t[:, None])
-            if fixed:
-                s_npu = torch.where(feas_npu, acc_stat, -inf)
-                s_srv = torch.where(feas_srv, a_best, -inf)
-            else:
-                s_npu = torch.where(feas_npu, acc_stat * im_t.gather(1, (k_npu - 1).clamp(0, KQ - 1)), -inf)
-                s_srv = torch.where(feas_srv, a_best * im_t.gather(1, (k_srv - 1).clamp(0, KQ - 1)), -inf)
-            # NPU-then-server candidate order with strict > first-wins is a
-            # first-maximum argmax over the concatenation (real scores are
-            # >= 0, so -inf marks infeasible unambiguously).
-            scores = torch.cat([s_npu, s_srv], dim=1)
-            idx = torch.argmax(scores, dim=1)
-            exists = _pick(scores, idx) > -inf
-            det_npu = exists & (idx < J)
-            j_pick = idx.clamp(0, J - 1)
-            r_pick = (idx - J).clamp(0, R - 1)
-            d_acc = torch.where(det_npu, _pick(acc_stat, j_pick), _pick(a_best, r_pick))
-            k_det = torch.where(det_npu, _pick(k_npu, j_pick), _pick(k_srv, r_pick))
-            horizon = k_lim_t if fixed else torch.where(exists, k_det, 1)  # fixed: consumed even on SKIP
-            fin_npu = npu_free + t_npu64[j_pick]
-            fin_srv = (_pick(t_up, r_pick) + net.rtt) + net.t_srv[_pick(j_best, r_pick)]
-            fin = torch.where(det_npu, fin_npu, fin_srv)
-            if strict:
-                bad = exists & (fin > deadline + AUDIT_TOL)
-            else:
-                bad = torch.zeros_like(exists)
-            # Detection first (audit order), then tracked frames ascending.
-            take = active & exists & ~bad
-            acc_sum = acc_sum + torch.where(take, d_acc, 0.0)
-            proc = proc + take.long()
-            offl = offl + (take & ~det_npu).long()
-            miss = miss + (active & bad).long()
-            det_acc = torch.where(take, d_acc, det_acc)
-            det_frm = torch.where(take, head, det_frm)
-            off0 = exists.long()  # SKIP tracks the head frame too
-            for o in range(KQ):
-                on = active & (o >= off0) & (o < horizon) & ((head + o) < n_frames)
-                age = (head + o - det_frm).clamp(0, A - 1)
-                v = _no_fma(det_acc * ret_t.gather(1, age[:, None])[:, 0])
-                acc_sum = acc_sum + torch.where(on, v, 0.0)
-                proc = proc + on.long()
-            npu_s = npu_s + torch.where(active & det_npu, t_npu64[j_pick], 0.0)
-            busy_until = torch.where(det_npu, fin_npu, npu_free)
-            head = torch.where(active, head + horizon, head)
-            busy = torch.where(active, t0 + busy_until, busy)
-            rounds = rounds + active.long()
-            return head, busy, det_acc, acc_sum, npu_s, det_frm, proc, miss, offl, rounds
+        def build(b):
+            net = _Net(b)
+            inf = net.inf
+            local = b.local[None, :]  # [1, J] models with an NPU variant
 
-        init = _init_state(run, B, 5, 3)
-        init = init[:5] + (torch.full((B,), -1, dtype=torch.int64, device=run.device),) + init[6:]
-        state, record = run.drive(key, step, init, n_frames)
+            def step(state):
+                head, busy, det_acc, acc_sum, npu_s, det_frm, proc, miss, offl, rounds = state
+                gamma, deadline, t_npu64, acc_stat = b.gamma, b.deadline, b.t_npu64, b.acc_stat
+                active = head < b.n_frames
+                t0 = _no_fma(head.double() * gamma)
+                npu_free = torch.clamp_min(busy - t0, 0.0)
+                # NPU candidates: j ascending (the concatenation order below).
+                kf = torch.where(local, torch.ceil(t_npu64[None, :] / gamma[:, None]), 0.0)
+                k_npu = torch.clamp_min(kf.long(), 1)  # [B, J] npu_interval
+                feas_npu = local & ((npu_free[:, None] + t_npu64) <= deadline[:, None]) & \
+                    (k_npu <= b.k_lim[:, None])
+                # Offload candidates: the reference's _server_candidates, r asc.
+                t_up = net.upload(net.bandwidth(t0))
+                j_best, a_best, r_ok = net.best_server(t_up, deadline, b.rtt)
+                k_srv = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None]).long() + 1
+                feas_srv = r_ok & (k_srv <= b.k_lim[:, None])
+                if fixed:
+                    s_npu = torch.where(feas_npu, acc_stat, -inf)
+                    s_srv = torch.where(feas_srv, a_best, -inf)
+                else:
+                    s_npu = torch.where(feas_npu, acc_stat * b.im.gather(1, (k_npu - 1).clamp(0, KQ - 1)), -inf)
+                    s_srv = torch.where(feas_srv, a_best * b.im.gather(1, (k_srv - 1).clamp(0, KQ - 1)), -inf)
+                # NPU-then-server candidate order with strict > first-wins is
+                # a first-maximum argmax over the concatenation (real scores
+                # are >= 0, so -inf marks infeasible unambiguously).
+                scores = torch.cat([s_npu, s_srv], dim=1)
+                idx = torch.argmax(scores, dim=1)
+                exists = _pick(scores, idx) > -inf
+                det_npu = exists & (idx < J)
+                j_pick = idx.clamp(0, J - 1)
+                r_pick = (idx - J).clamp(0, R - 1)
+                d_acc = torch.where(det_npu, _pick(acc_stat, j_pick), _pick(a_best, r_pick))
+                k_det = torch.where(det_npu, _pick(k_npu, j_pick), _pick(k_srv, r_pick))
+                horizon = b.k_lim if fixed else torch.where(exists, k_det, 1)  # fixed: consumed even on SKIP
+                fin_npu = npu_free + t_npu64[j_pick]
+                fin_srv = (_pick(t_up, r_pick) + b.rtt) + b.t_srv[_pick(j_best, r_pick)]
+                fin = torch.where(det_npu, fin_npu, fin_srv)
+                if strict:
+                    bad = exists & (fin > deadline + AUDIT_TOL)
+                else:
+                    bad = torch.zeros_like(exists)
+                # Detection first (audit order), then tracked frames ascending.
+                take = active & exists & ~bad
+                acc_sum = acc_sum + torch.where(take, d_acc, 0.0)
+                proc = proc + take.long()
+                offl = offl + (take & ~det_npu).long()
+                miss = miss + (active & bad).long()
+                det_acc = torch.where(take, d_acc, det_acc)
+                det_frm = torch.where(take, head, det_frm)
+                off0 = exists.long()  # SKIP tracks the head frame too
+                for o in range(KQ):
+                    on = active & (o >= off0) & (o < horizon) & ((head + o) < b.n_frames)
+                    age = (head + o - det_frm).clamp(0, A - 1)
+                    v = _no_fma(det_acc * b.ret_pow.gather(1, age[:, None])[:, 0])
+                    acc_sum = acc_sum + torch.where(on, v, 0.0)
+                    proc = proc + on.long()
+                npu_s = npu_s + torch.where(active & det_npu, t_npu64[j_pick], 0.0)
+                busy_until = torch.where(det_npu, fin_npu, npu_free)
+                head = torch.where(active, head + horizon, head)
+                busy = torch.where(active, t0 + busy_until, busy)
+                rounds = rounds + active.long()
+                return head, busy, det_acc, acc_sum, npu_s, det_frm, proc, miss, offl, rounds
+
+            def init():
+                state = _init_state(b, 5, 3)
+                return state[:5] + (torch.full((b.B,), -1, dtype=torch.int64, device=b.device),) + state[6:]
+
+            return step, init
+
+        shared = _shared(models, c)
+        del shared["acc_dp"]
+        state, record = run.drive(
+            key, dict(gamma=c.gamma, deadline=c.deadline, n_frames=c.n_frames, k_lim=k_lim, im=im, ret_pow=ret_pow,
+                      acc_stat=c.acc_stat64, **_net_lanes(models, group)),
+            dict(shared, local=np.isfinite(c.t_npu64)), build, statics=(fixed, strict))
         acc_sum, npu_s, proc, miss, offl, rounds = state[3], state[4], *state[6:]
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s, offl)
         return _collect(c, out[:5], time.perf_counter() - t_start, offloaded=out[5])
@@ -853,38 +912,24 @@ def _run_track_fixed(models, scenarios, strict, run: _Run):
 # ---------------------------------------------------------------------------
 
 
-def _max_utility_lanes(run: _Run, key, models: list[ModelProfile], group: list[BatchScenario], *,
-                       width: int, exact: bool, strict: bool):
-    """Run max_utility over ``group`` (one shape group, or its lanes to
-    rerun) to the end at front ``width``; returns ``(common, state,
-    record)``."""
-    c = _common(models, group, key[0])
-    P = run.put
-    net = _Net(run, models, group)
-    gamma, deadline, n_w, n_frames = P(c.gamma), P(c.deadline), P(c.n_active), P(c.n_frames)
-    alpha = P(np.array([float(s.params["alpha"]) for s in group], np.float64))
-    fps = P(np.array([s.stream.fps for s in group], np.float64))
-    arrivals, acc_stat, t_npu64, acc_dp = P(c.arrivals), P(c.acc_stat64), P(c.t_npu64), P(c.acc_dp64)
-    rtt, acc_sv, t_srv = net.rtt, net.acc_sv, net.t_srv
-    B, W, J = c.B, c.W, c.J
-    ks = torch.arange(W, device=run.device)
-    lanes = torch.arange(B, device=run.device)
-    inf = net.inf
-    neg = torch.full((), NEG, dtype=torch.float64, device=run.device)
-    ones = torch.ones((), dtype=torch.float64, device=run.device)
+def _utility_planner(b, W: int, J: int, width: int, exact: bool):
+    """Max-Utility's planning phase over a program's buffers:
+    ``plan(npu_free, t_up, rtt) -> _Plan`` from the upload times [B, R] and
+    the round trip [B] the planner believes, as :func:`_accuracy_planner`."""
+    B = b.B
+    lanes = torch.arange(B, device=b.device)
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=b.device)
+    neg = torch.full((), NEG, dtype=torch.float64, device=b.device)
+    ones = torch.ones((), dtype=torch.float64, device=b.device)
 
-    def step(state):
-        head, busy, acc_sum, npu_s, proc, miss, offl, rounds, ovf = state
-        active = head < n_frames
-        t0 = _no_fma(head.double() * gamma)
-        npu_free = torch.clamp_min(busy - t0, 0.0)
-        t_up = net.upload(t0)  # [B, R]
+    def plan(npu_free, t_up, rtt):
+        gamma, deadline, alpha, n_w, acc_sv, t_srv = b.gamma, b.deadline, b.alpha, b.n_active, b.acc_sv, b.t_srv
         R = t_up.shape[1]
         # Offload phase: argmax_{r,j} capped-rate + alpha * a(j, r); the
         # reference iterates r-outer/j-inner with strict >, so the first
         # maximum over the r-major flattening wins ties identically.
         feas = ((t_up[:, :, None] + t_srv) + rtt[:, None, None]) <= deadline[:, None, None]  # [B, R, J]
-        rate = torch.minimum(ones / torch.clamp_min(t_up, 1e-9), fps[:, None])
+        rate = torch.minimum(ones / torch.clamp_min(t_up, 1e-9), b.fps[:, None])
         score = rate[:, :, None] + _no_fma(alpha[:, None, None] * acc_sv.transpose(1, 2))
         flat = torch.where(feas, score, -inf).reshape(B, R * J)
         off_exists = feas.reshape(B, -1).any(dim=1)
@@ -898,18 +943,17 @@ def _max_utility_lanes(run: _Run, key, models: list[ModelProfile], group: list[B
         win2 = torch.maximum(n_w.double() * gamma, gamma)
         # Both DP instances as one over 2B lanes: offload first, local second.
         (_, u, _, _), par, act, flag = _utility_dp64(
-            t_npu64, acc_dp, torch.cat([n_plan, n_w]), width=width, gamma=_lanes2(gamma),
+            b.t_npu64, b.acc_dp, torch.cat([n_plan, n_w]), width=width, gamma=_lanes2(gamma),
             deadline=_lanes2(deadline), alpha=_lanes2(alpha), npu_free=_lanes2(npu_free),
             first_arrival=torch.cat([gamma, torch.zeros_like(gamma)]), window=torch.cat([win1, win2]),
             n_frames=W, exact=exact)
-        ovf = ovf | (active & (flag[:B] | flag[B:]))
         picks2 = _backtrack_slots(par, act, u)
         srv_acc = acc_sv[lanes, j0, r0]
         # _round_utility's decision-order f64 fold; the head offload's server
         # accuracy seeds the offload lanes so the summation order matches.
-        n12 = torch.zeros(2 * B, dtype=torch.int64, device=run.device)
+        n12 = torch.zeros(2 * B, dtype=torch.int64, device=b.device)
         a12 = torch.cat([srv_acc, torch.zeros_like(srv_acc)])
-        acc_stat2 = _lanes2(acc_stat)
+        acc_stat2 = _lanes2(b.acc_stat)
         for k in range(W):
             pick = picks2[:, k]
             takes = pick >= 0
@@ -926,33 +970,50 @@ def _max_utility_lanes(run: _Run, key, models: list[ModelProfile], group: list[B
         use_loc = ~use_off & (n2 > 0)
         nn = torch.where(use_off, n_plan, torch.where(use_loc, n_w, 0))
         picks = torch.where(use_off[:, None], picks2[:B], picks2[B:])
-        srv_fin = (t_up0 + rtt) + t_srv[j0.clamp(0, J - 1)]
-        if strict:
-            srv_bad = use_off & (srv_fin > deadline + AUDIT_TOL)
-        else:
-            srv_bad = torch.zeros_like(use_off)
-        srv_take = active & use_off & ~srv_bad
-        acc_sum = acc_sum + torch.where(srv_take, srv_acc, 0.0)
-        proc = proc + srv_take.long()
-        offl = offl + srv_take.long()
-        miss = miss + (active & srv_bad).long()
+        return _Plan(use_off, use_loc, r0, j0.clamp(0, J - 1), t_up0, srv_acc, picks, nn,
+                     torch.where(use_off, n_plan + 1, torch.where(use_loc, n_w, 1)), flag[:B] | flag[B:])
 
-        fa = torch.where(use_off, gamma, 0.0)
-        gate = (active[:, None] & (picks >= 0)) & (ks < nn[:, None])
-        free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-            head=head, frame_offset=use_off.long(), n_frames=n_frames, arrivals=fa[:, None] + arrivals,
-            deadline=deadline, t_npu64=t_npu64, acc_stat=acc_stat, picks=picks, gate=gate,
-            free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
-            strict=strict)
-        busy_until = torch.where(use_off | use_loc, free_end, npu_free)
-        horizon = torch.where(use_off, n_plan + 1, torch.where(use_loc, n_w, 1))
-        head = torch.where(active, head + horizon, head)
-        busy = torch.where(active, t0 + busy_until, busy)
-        rounds = rounds + active.long()
-        return head, busy, acc_sum, npu_s, proc, miss, offl, rounds, ovf
+    return plan
 
-    init = _init_state(run, B, 4, 2) + (torch.zeros(B, dtype=torch.bool, device=run.device),)
-    return (c, *run.drive(key, step, init, n_frames))
+
+def _utility_inputs(models, c: _Common, group) -> dict[str, np.ndarray]:
+    """Max-Utility's per-lane inputs."""
+    return dict(_base_lanes(c), alpha=np.array([float(s.params["alpha"]) for s in group], np.float64),
+                fps=np.array([s.stream.fps for s in group], np.float64), **_net_lanes(models, group))
+
+
+def _max_utility_lanes(run: _Run, key, models: list[ModelProfile], group: list[BatchScenario], *,
+                       width: int, exact: bool, strict: bool):
+    """Run max_utility over ``group`` (one shape group, or its lanes to
+    rerun) to the end at front ``width``; returns ``(common, state,
+    record)``."""
+    c = _common(models, group, key[0])
+    W, J = c.W, c.J
+
+    def build(b):
+        plan = _utility_planner(b, W, J, width, exact)
+        net = _Net(b)
+        ks = torch.arange(W, device=b.device)
+
+        def step(state):
+            head, busy, acc_sum, npu_s, proc, miss, offl, rounds, ovf = state
+            active = head < b.n_frames
+            t0 = _no_fma(head.double() * b.gamma)
+            npu_free = torch.clamp_min(busy - t0, 0.0)
+            p = plan(npu_free, net.upload(net.bandwidth(t0)), b.rtt)
+            ovf = ovf | (active & p.ovf)
+            acc_sum, proc, miss, offl = _server_audit(
+                p, active=active, rtt=b.rtt, t_srv=b.t_srv, deadline=b.deadline, strict=strict,
+                acc_sum=acc_sum, proc=proc, miss=miss, offl=offl)
+            head, busy, acc_sum, proc, miss, npu_s, rounds = _npu_audit(
+                b, p, ks, active=active, head=head, busy=busy, t0=t0, npu_free=npu_free, acc_sum=acc_sum,
+                proc=proc, miss=miss, npu_s=npu_s, rounds=rounds, strict=strict)
+            return head, busy, acc_sum, npu_s, proc, miss, offl, rounds, ovf
+
+        return step, lambda: _init_state(b, 4, 2) + (torch.zeros(b.B, dtype=torch.bool, device=b.device),)
+
+    return (c, *run.drive(key, _utility_inputs(models, c, group), _shared(models, c), build,
+                          statics=(width, exact, strict)))
 
 
 @_planner("max_utility")

@@ -11,6 +11,13 @@ cores (``mma.sync`` fed by ``ldmatrix`` and ``cp.async``); f32, and bf16
 views at an address that is not 16-byte aligned, run on the CUDA cores.
 ``blocks`` gives the grid either kernel launches.
 
+The kernels are built for head dims ``HEAD_DIMS``.  Any other head dim up
+to the widest is zero-padded on the last axis to the next one
+(``padded_head_dim``: 8 -> 16, 72 -> 128), run at that width and sliced
+back: a zero column adds nothing to ``q·k`` and gives a zero output
+column, and the softmax scale stays the caller's ``1/sqrt(hd)``.  So the
+kernel runs at every head dim up to 128; a wider one raises.
+
 ``flash_attention.launches`` counts kernel launches (CPU calls do not
 count), so a run can show that its attention went through the kernel.
 """
@@ -53,8 +60,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int,
         raise ValueError(f"flash_attention: empty operand, q {tuple(q.shape)} k {tuple(k.shape)}")
     if H % KH != 0:
         raise ValueError(f"flash_attention: {H} query heads do not group over {KH} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if hd > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head dim {hd} is wider than the kernel's {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES:
             raise TypeError(f"flash_attention: {name} is {t.dtype}; the kernel takes {list(DTYPES)}")
@@ -67,6 +74,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     return B, S, T, H, KH, hd
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel width a head dim runs at: the narrowest of ``HEAD_DIMS``
+    that holds it."""
+    return next(w for w in HEAD_DIMS if w >= hd)
 
 
 def kernel_path(dtype: torch.dtype, *ptrs: int) -> str:
@@ -88,13 +101,23 @@ def blocks(B: int, S: int, H: int, KH: int) -> int:
     return -(-(H // KH) * S // ROWS) * B * KH
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """q [B,S,H,hd], k/v [B,T,KH,hd] (f32 or bf16, contiguous, hd in
-    ``HEAD_DIMS``) -> [B,S,H,hd] in q's dtype.  The causal mask is
-    bottom-right aligned (query ``s`` sees key ``t <= s + T - S``)."""
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """q [B,S,H,hd], k/v [B,T,KH,hd] (f32 or bf16, contiguous, hd <= 128)
+    -> [B,S,H,hd] in q's dtype, with logits ``q·k * sm_scale`` (default
+    ``1/sqrt(hd)``).  The causal mask is bottom-right aligned (query ``s``
+    sees key ``t <= s + T - S``).  A head dim outside ``HEAD_DIMS`` runs
+    zero-padded to :func:`padded_head_dim`, on either device."""
     B, S, T, H, KH, hd = _check(q, k, v)
+    width = padded_head_dim(hd)
+    if width != hd:
+        scale = 1.0 / (hd**0.5) if sm_scale is None else sm_scale
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
+        return flash_attention(q, k, v, causal=causal, sm_scale=scale)[..., :hd].contiguous()
     if q.device.type == "cpu":
-        return ref.sdpa_ref(q, k, v, causal=causal)
+        return ref.sdpa_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    if sm_scale is None:
+        sm_scale = 1.0 / (hd**0.5)
     if B * KH > MAX_GRID_Y:
         raise ValueError(f"flash_attention: B * KH = {B * KH} exceeds the kernel's grid ({MAX_GRID_Y})")
     out = torch.empty_like(q)
@@ -102,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     with torch.cuda.device(q.device):
         err = _kernel()(
             *ptrs, out.data_ptr(), B, S, T, H, KH, hd, int(causal), DTYPES[q.dtype],
-            PATHS[kernel_path(q.dtype, *ptrs)], 1.0 / (hd**0.5),
+            PATHS[kernel_path(q.dtype, *ptrs)], sm_scale,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -20,15 +20,18 @@ import torch
 NEG_INF = -1e30
 
 
-def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool) -> torch.Tensor:
+def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+             sm_scale: float | None = None) -> torch.Tensor:
     """q: [B,S,H,hd]; k/v: [B,T,KH,hd] (GQA when H > KH) -> [B,S,H,hd].
     The causal mask is bottom-right aligned: query ``s`` sees key
-    ``t <= s + T - S``."""
+    ``t <= s + T - S``.  Logits are ``q·k / sqrt(hd)``, or ``q·k *
+    sm_scale`` where a scale is given."""
     B, S, H, hd = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
     qg = q.reshape(B, S, KH, G, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) / math.sqrt(hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
+    logits = logits / math.sqrt(hd) if sm_scale is None else logits * sm_scale
     if causal:
         mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
         logits = logits.masked_fill(~mask, NEG_INF)

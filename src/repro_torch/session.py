@@ -14,13 +14,15 @@ reference's schema, so one spec file runs in either package.
     run_serving  real models on the card behind the controller (launch/serve)
     run_sweep    a whole (bandwidth x deadline x fps x policy-param) grid in
                  one call — lane-batched on the device for ``batched=True``
-                 policies (core/sim_batch), the per-point loop otherwise
+                 policies (core/sim_batch) and, with ``mode="online"``, for
+                 ``batched_online=True`` policies (core/sim_online_batch);
+                 the per-point loop otherwise
 
 Policies that plan with tensor ops (``jax_accuracy``, ``jax_utility``) and
-the batched sweep engine run on the Session's device.  Sweeps the reference
-runs on its fleet or online engines (``sim_multi_batch``,
-``sim_online_batch``), and its compile cache, are not ported yet: those
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+the batched sweep engines run on the Session's device.  Fleet sweeps the
+reference runs on its fleet engine (``sim_multi_batch``) are not ported
+yet: those raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 
     from repro_torch.core.registry import PolicySpec
     from repro_torch.session import ScenarioSpec, Session
@@ -33,6 +35,7 @@ or from the shell::
 
     PYTHONPATH=src python -m repro_torch.session scenario.json --mode sim --device cpu
     PYTHONPATH=src python -m repro_torch.session sweep scenario.json --grid grid.json --device cpu
+    PYTHONPATH=src python -m repro_torch.session sweep scenario.json --grid grid.json --mode online
 """
 from __future__ import annotations
 
@@ -41,7 +44,6 @@ import dataclasses
 import itertools
 import json
 import logging
-import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -49,8 +51,9 @@ from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 
-from .core import sim_batch
+from .core import sim_batch, sim_online_batch
 from .core.audit import AUDIT_TOL, apply_round, audit_round
+from .core.compile_cache import default_cache_dir, enable_compile_cache
 from .core.controller import BandwidthEstimator, OnlineController
 from .core.edge_server import ALLOCATION_POLICIES, EdgeServerScheduler, make_fleet
 from .core.profiles import PAPER_MODELS, ModelProfile, StreamSpec
@@ -690,22 +693,13 @@ class SweepReport:
 # Session facade
 # ---------------------------------------------------------------------------
 
-# The reference's sweep engines and options this package does not have yet.
-# run_sweep refuses them by name instead of running them another way.
+# The reference's sweep engines this package does not have yet.  run_sweep
+# refuses them by name instead of running them another way.
 _NOT_PORTED = {
     "sim_multi_batch": (
         "the batched fleet sweep engine (core/sim_multi_batch) is not ported to "
         "repro_torch yet; see ROADMAP.md, 'Modules to port', item 6; "
         "backend='reference' runs the grid point by point"
-    ),
-    "sim_online_batch": (
-        "the batched online sweep engine (core/sim_online_batch) is not ported to "
-        "repro_torch yet; see ROADMAP.md, 'Modules to port', item 7; "
-        "backend='reference' runs the grid point by point"
-    ),
-    "compile_cache": (
-        "the sweep compile cache (core/compile_cache, $REPRO_COMPILE_CACHE) is not "
-        "ported to repro_torch yet; see ROADMAP.md, 'Modules to port', item 8"
     ),
 }
 
@@ -880,22 +874,32 @@ class Session:
         (``run_sim``, or ``run_multi`` when the point has a fleet).
         Requesting ``backend="batched"`` for a policy/grid combination
         without a batched engine logs a warning and falls back to the
-        per-point loop, recorded in ``meta["fallback"]``.  Grids the
-        reference runs on its fleet or online engines (``batched_multi`` /
-        ``batched_online`` policies) raise ``NotImplementedError`` naming
-        the ROADMAP.md item that ports them, unless ``backend="reference"``.
+        per-point loop, recorded in ``meta["fallback"]``.  Fleet grids the
+        reference runs on its fleet engine (``batched_multi`` policies)
+        raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+        it, unless ``backend="reference"``.
 
         ``chunk_size`` plans the grid as a lazy iterator of chunks instead
         of materializing every spec upfront.  Chunking is result-invariant
         (shape groups are per-scenario and padding is inert), and each
         chunk's stats fold into an incremental :class:`SweepSummary` in
         ``meta["summary"]``.  ``keep_points=False`` drops per-point results
-        after folding them into the summary.  ``compile_cache`` (and
-        ``$REPRO_COMPILE_CACHE``) raise ``NotImplementedError``.
+        after folding them into the summary.  A shape group's lane program
+        (on the card, its captured CUDA graph) is kept for the life of the
+        process (``core/sweep_shard``), so later chunks and later sweeps of
+        the same shapes reuse it.  ``compile_cache`` (or
+        ``$REPRO_COMPILE_CACHE``) names the reference's persistent cache
+        directory: the port writes nothing there, since a CUDA graph cannot
+        outlive its process, and records ``{"dir": ..., "persistent":
+        False, "scope": "process"}`` in ``meta["compile_cache"]``.
 
         ``mode="online"`` sweeps the observe->replan->execute world of
-        ``run_online`` instead of the oracle-bandwidth simulator, point by
-        point; online sweeps are single-stream.
+        ``run_online`` instead of the oracle-bandwidth simulator: each grid
+        point plans against an EWMA bandwidth belief and is audited against
+        the true trace.  Policies registered ``batched_online=True`` run the
+        whole grid through ``core/sim_online_batch``; every other policy
+        runs ``run_online`` point by point.  Online sweeps are
+        single-stream.
         """
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; want one of {self.BACKENDS}")
@@ -903,8 +907,7 @@ class Session:
             raise ValueError(f"unknown sweep mode {mode!r}; want one of {self.SWEEP_MODES}")
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be a positive int, got {chunk_size!r}")
-        if compile_cache is not None or os.environ.get("REPRO_COMPILE_CACHE"):
-            raise NotImplementedError(_NOT_PORTED["compile_cache"])
+        cache_dir = compile_cache if compile_cache is not None else default_cache_dir()
         entry = get_policy(self.spec.policy.name)
         n_points = len(grid)
         chunk = n_points if chunk_size is None else int(chunk_size)
@@ -923,6 +926,8 @@ class Session:
                                 "device": str(self.device)}
         if mode != "auto":
             meta["mode"] = mode
+        if cache_dir:
+            meta["compile_cache"] = enable_compile_cache(cache_dir)
         streaming = chunk_size is not None or not keep_points
         summary = SweepSummary() if streaming else None
         out_points: list[SweepPoint] = []
@@ -953,17 +958,21 @@ class Session:
                 if use_batched and not capable:
                     _LOG.warning(
                         "%s; run_sweep falling back to the reference loop "
-                        "(batched policies: %s)", why, sim_batch.batched_policies(),
+                        "(batched policies: %s; batched online policies: %s)", why,
+                        sim_batch.batched_policies(), sim_online_batch.batched_online_policies(),
                     )
                     meta["fallback"] = why
                     use_batched = False
                 if use_batched:
                     if mode == "online":
-                        raise NotImplementedError(_NOT_PORTED["sim_online_batch"])
-                    if any(s.fleet is not None for s in specs):
+                        meta["engine"] = "sim_online_batch"
+                    elif any(s.fleet is not None for s in specs):
                         raise NotImplementedError(_NOT_PORTED["sim_multi_batch"])
-                    meta["engine"] = "sim_batch"
-            if use_batched:
+                    else:
+                        meta["engine"] = "sim_batch"
+            if use_batched and mode == "online":
+                points = self._sweep_batched_online(specs, pts, groups)
+            elif use_batched:
                 points = self._sweep_batched(specs, pts, groups)
             else:
                 points = [self._sweep_reference(s, p, mode=mode) for s, p in zip(specs, pts)]
@@ -1058,6 +1067,32 @@ class Session:
             for spec, pt, st in zip(specs, pts, stats)
         ]
 
+    def _sweep_batched_online(
+        self, specs: list[ScenarioSpec], pts: list[dict[str, Any]], groups: list[dict[str, Any]]
+    ) -> list[SweepPoint]:
+        """An online grid through the lane-batched estimator loop; per-point
+        meta is what ``run_online`` reports (round count, final believed
+        bandwidth)."""
+        base = self.spec
+        scens = [
+            sim_online_batch.OnlineScenario(
+                stream=s.stream,
+                n_frames=s.n_frames,
+                params=s.policy.params,
+                rtt=s.trace.rtt_s,
+                bw_segments=s.trace.segments(),
+            )
+            for s in specs
+        ]
+        results = sim_online_batch.simulate_online_batch(
+            base.policy.name, list(base.models), scens, strict=base.strict, device=self.device,
+            groups=groups,
+        )
+        return [
+            SweepPoint(overrides=dict(pt), streams=[st], meta={"policy": spec.policy.name, **lane_meta})
+            for spec, pt, (st, lane_meta) in zip(specs, pts, results)
+        ]
+
     # -- mode: real models behind the controller ---------------------------
     def run_serving(self) -> RunReport:
         """Stand up the real-model serving stack (launch/serve) for this
@@ -1127,7 +1162,9 @@ def _sweep_main(argv: Sequence[str]) -> int:
     ap.add_argument("--summary-only", action="store_true",
                     help="drop per-point stats, keep only the streaming summary")
     ap.add_argument("--compile-cache", metavar="DIR",
-                    help="the reference's compile cache (not ported: exits 2)")
+                    help="the reference's persistent compile cache directory; "
+                    "the port keeps its captured programs in the process and "
+                    "writes nothing there (recorded in meta)")
     ap.add_argument("--example-grid", action="store_true",
                     help="print an example grid JSON and exit")
     args = ap.parse_args(argv)

@@ -24,7 +24,11 @@ Tolerances and why:
   * the lane-batched sweep engine (``core/sim_batch``) on the card against
     the same call on the CPU, for the six batched policies at 100 points of
     chip_smoke's full-width grids: exact, for the same reason (divisors are
-    per-lane device tensors, every product rounds before its add).
+    per-lane device tensors, every product rounds before its add);
+  * the lane-batched online engine (``core/sim_online_batch``) likewise, at
+    100 points of the adaptivity grid: exact, ``estimated_bps`` included;
+  * a cached lane program (``core/sweep_shard``) replayed for a new group
+    against the same group run with an empty cache: exact.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
 from chip_smoke import (  # noqa: E402
-    CPU_CHECK_EVERY,
+    ADAPT_GRID,
+    ONLINE_PARAMS,
     FLASH_SHAPES,
     FLASH_TOL,
     GEMM_SHAPES,
@@ -46,13 +51,14 @@ from chip_smoke import (  # noqa: E402
     at_offset,
     batch_scenarios,
     full_grids,
+    online_spec,
     own_fan_in,
     stats_rows,
 )
 
 from repro_torch import arch as A
-from repro_torch import configs, core, quant, session
-from repro_torch.core import jax_sched, profiles, sim_batch
+from repro_torch import configs, core, quant, scenariogen, session
+from repro_torch.core import compile_cache, jax_sched, profiles, sim_batch, sim_online_batch, sweep_shard
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
@@ -266,7 +272,7 @@ def _sweep_scenarios(name: str, n_frames: int = 120):
     to ``n_frames``: both halves, constant and piecewise traces."""
     out = []
     for spec, grid in full_grids(name):
-        base, scens = batch_scenarios(session, core, {**spec, "n_frames": n_frames}, grid, every=CPU_CHECK_EVERY)
+        base, scens = batch_scenarios(session, core, {**spec, "n_frames": n_frames}, grid, every=10)
         out += scens
     return list(base.models), out
 
@@ -281,6 +287,26 @@ def test_sweep_engine_on_card_equals_cpu(cuda_device, name):
     assert stats_rows(card) == stats_rows(cpu)
 
 
+def _sync_checked(monkeypatch) -> list:
+    """Issue every round of a lane program under CUDA's sync debug mode
+    ("error"), with an empty program cache so every group captures; returns
+    the list the issued rounds are counted in."""
+    issued = []
+    issue = sweep_shard.LaneProgram._issue
+
+    def checked(prog, state):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            issued.append(prog.key)
+            return issue(prog, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(sweep_shard.LaneProgram, "_issue", checked)
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    return issued
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SWEEP_PARAMS))
 def test_sweep_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
@@ -289,19 +315,95 @@ def test_sweep_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
     warm-up and its capture as a CUDA graph, which a sync would also
     break).  The read after each round and the group's set-up copies stay
     outside."""
-    drive = sim_batch._Run.drive
-
-    def checked_drive(self, key, step, state, n_frames):
-        def checked(st):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return step(st)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return drive(self, key, checked, state, n_frames)
-
-    monkeypatch.setattr(sim_batch._Run, "drive", checked_drive)
+    issued = _sync_checked(monkeypatch)
     models, scens = _sweep_scenarios(name, n_frames=24)
     groups = []
     sim_batch.simulate_batch(name, models, scens[:20], device=cuda_device, groups=groups)
+    assert len(issued) == 2 * len(groups)  # each group's warm-up and capture
     assert all(g["host_reads"] == g["rounds"] + 1 for g in groups if not g["reruns"])
+
+
+def _online_scenarios(name: str, n_frames: int = 120):
+    """100 points of chip_smoke's adaptivity grid (every 10th), over
+    ``n_frames`` of the mobility square wave."""
+    trace = scenariogen.make_trace("mobility_square").to_json()
+    base = session.ScenarioSpec.from_json(online_spec(name, n_frames, trace))
+    specs = [session._apply_point(base, p) for p in session.SweepGrid.from_json(ADAPT_GRID).points()[::10]]
+    return list(base.models), [sim_online_batch.OnlineScenario(
+        stream=s.stream, n_frames=s.n_frames, params=s.policy.params, rtt=s.trace.rtt_s,
+        bw_segments=s.trace.segments()) for s in specs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONLINE_PARAMS))
+def test_online_engine_on_card_equals_cpu(cuda_device, name):
+    models, scens = _online_scenarios(name)
+    assert len(scens) == 100
+    card = sim_online_batch.simulate_online_batch(name, models, scens, device=cuda_device)
+    cpu = sim_online_batch.simulate_online_batch(name, models, scens, device="cpu")
+    assert stats_rows(st for st, _ in card) == stats_rows(st for st, _ in cpu)
+    assert [m for _, m in card] == [m for _, m in cpu]  # rounds and estimated_bps, bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONLINE_PARAMS))
+def test_online_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
+    issued = _sync_checked(monkeypatch)
+    models, scens = _online_scenarios(name, n_frames=30)
+    groups = []
+    sim_online_batch.simulate_online_batch(name, models, scens[:20], device=cuda_device, groups=groups)
+    assert len(issued) == 2 * len(groups)
+    assert all(g["host_reads"] == g["rounds"] + 1 for g in groups if not g["reruns"])
+
+
+def _ab(name: str):
+    """Two lists of scenarios with the same shape keys and other values."""
+    models, scens = _sweep_scenarios(name, n_frames=24)
+    return models, scens[:10], scens[10:20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["jax_utility", "max_accuracy", "track_accuracy"])
+def test_cache_hit_replays_with_no_capture(cuda_device, name, monkeypatch):
+    """The same group again replays its cached graph: 0 captures, one hit
+    per group, the same results."""
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    models, scens, _ = _ab(name)
+    with compile_cache.CompileCounter() as first:
+        once = sim_batch.simulate_batch(name, models, scens, device=cuda_device)
+    with compile_cache.CompileCounter() as again:
+        twice = sim_batch.simulate_batch(name, models, scens, device=cuda_device)
+    assert first.captures == first.misses >= 1 and first.hits == 0
+    assert (again.captures, again.misses, again.hits) == (0, 0, first.misses)
+    assert stats_rows(once) == stats_rows(twice)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SWEEP_PARAMS))
+def test_graph_a_then_b_equals_b_alone(cuda_device, name, monkeypatch):
+    """Scenarios B run on the graphs scenarios A captured (where their shape
+    keys meet) equal B run with an empty cache."""
+    models, scens_a, scens_b = _ab(name)
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    sim_batch.simulate_batch(name, models, scens_a, device=cuda_device)
+    groups = []
+    after_a = sim_batch.simulate_batch(name, models, scens_b, device=cuda_device, groups=groups)
+    assert any(g["cached"] for g in groups)
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    alone = sim_batch.simulate_batch(name, models, scens_b, device=cuda_device)
+    assert stats_rows(after_a) == stats_rows(alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONLINE_PARAMS))
+def test_online_graph_a_then_b_equals_b_alone(cuda_device, name, monkeypatch):
+    models, scens = _online_scenarios(name, n_frames=60)
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    sim_online_batch.simulate_online_batch(name, models, scens[:8], device=cuda_device)
+    groups = []
+    after_a = sim_online_batch.simulate_online_batch(name, models, scens[8:16], device=cuda_device, groups=groups)
+    assert any(g["cached"] for g in groups)
+    monkeypatch.setattr(sweep_shard, "PROGRAMS", sweep_shard.LaneCache())
+    alone = sim_online_batch.simulate_online_batch(name, models, scens[8:16], device=cuda_device)
+    assert stats_rows(st for st, _ in after_a) == stats_rows(st for st, _ in alone)
+    assert [m for _, m in after_a] == [m for _, m in alone]

@@ -20,7 +20,9 @@ import torch
 
 from repro.kernels.flash_attention import kernel as fk
 from repro.kernels.flash_attention import ref as fr
+from repro.models import layers as JL
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.models import layers as L
 
 F32 = dict(rtol=1e-4, atol=2e-5)
 BF16 = dict(rtol=0.05, atol=0.02)
@@ -122,8 +124,8 @@ def test_cpu_path_launches_nothing():
 def test_wrapper_refuses(bad):
     q, k, v = (torch.tensor(a) for a in _qkv(1, 8, 8, 4, 2, 16, seed=1))
     err = ValueError
-    if bad == "hd":
-        q, k, v = (torch.zeros(*t.shape[:3], 48) for t in (q, k, v))
+    if bad == "hd":  # wider than the widest kernel (narrower ones run zero-padded)
+        q, k, v = (torch.zeros(*t.shape[:3], 160) for t in (q, k, v))
     elif bad == "dtype":
         q, k, v = (t.to(torch.float16) for t in (q, k, v))
         err = TypeError
@@ -140,3 +142,34 @@ def test_wrapper_refuses(bad):
         v = torch.zeros(1, 9, 2, 16)
     with pytest.raises(err):
         ops.attention(q, k, v, causal=False)
+
+
+# Head dims outside the kernel's set: DiT-XL/2 (1152 / 16 = 72, bidirectional)
+# and the command-r smoke config (hd 8, causal GQA).
+PADDED_CASES = {  # hd: (causal, n_heads, n_kv_heads, kernel width)
+    8: (True, 4, 2, 16),
+    72: (False, 2, 2, 128),
+}
+
+
+@pytest.mark.parametrize("hd", sorted(PADDED_CASES))
+def test_attention_pads_head_dims_outside_the_kernel_set(hd, monkeypatch):
+    """``layers.attention`` at a head dim the kernel is not built for runs
+    the flash op zero-padded to the next kernel width (the plain version on
+    the CPU sees the padded width) with the caller's ``1/sqrt(hd)``, and
+    equals the reference's ``_sdpa`` forward within the f32 tolerance."""
+    causal, H, KH, width = PADDED_CASES[hd]
+    assert ops.padded_head_dim(hd) == width
+    kw = dict(d_model=32, n_heads=H, n_kv_heads=KH, head_dim=hd, causal=causal, rope=False, bias=True)
+    rng = np.random.default_rng(hd)
+    specs = JL.attention_specs(JL.AttnCfg(**kw))
+    p = {name: (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])).astype(np.float32) for name, s in specs.items()}
+    x = rng.standard_normal((2, 13, 32)).astype(np.float32)
+    y_j, _ = JL.attention(JL.AttnCfg(**kw), {n: jnp.asarray(a) for n, a in p.items()}, jnp.asarray(x))
+    widths = []
+    real = ref.sdpa_ref
+    monkeypatch.setattr(ref, "sdpa_ref", lambda q, *a, **kw_: (widths.append(q.shape[-1]), real(q, *a, **kw_))[1])
+    with torch.no_grad():
+        y, _ = L.attention(L.AttnCfg(**kw), {n: torch.tensor(a) for n, a in p.items()}, torch.tensor(x))
+    assert widths == [width]
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **F32)

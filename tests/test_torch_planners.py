@@ -151,23 +151,27 @@ def test_registry_validation_matches_reference():
     assert tregistry.available_policies() == jregistry.available_policies()
 
 
-# What run_sweep still refuses, per mode: the fleet and online sweep
-# engines and the compile cache, each named by its ROADMAP.md item.
+# run_sweep per mode: with the compile cache (item 8), a fleet grid (item 6,
+# still refused) and an online grid (item 7), and the engine each runs on.
 _SWEEP_REFUSALS = {
-    "sim": ({}, {"compile_cache": "cache"}, "item 8"),
+    "sim": ({}, {"compile_cache": "cache"}, "sim_batch"),
     "multi": ({"n_clients": (1, 2)}, {}, "item 6"),
-    "online": ({"deadline_ms": (150.0,)}, {"mode": "online"}, "item 7"),
+    "online": ({"deadline_ms": (150.0,)}, {"mode": "online"}, "sim_online_batch"),
 }
 
 
 @pytest.mark.parametrize("mode", ["sim", "multi", "online"])
 def test_unported_session_modes_name_the_roadmap(mode):
-    """Every mode runs; ``run_sweep`` runs single-stream grids, and refuses
-    the reference's fleet and online sweep engines and its compile cache,
-    naming the ROADMAP.md item that ports each."""
+    """Every mode runs; ``run_sweep`` runs single-stream and online grids
+    lane-batched (the compile cache accepted), and refuses the reference's
+    fleet sweep engine, naming the ROADMAP.md item that ports it."""
     spec = tsession.ScenarioSpec(policy="max_accuracy", n_frames=12)
     report = tsession.Session(spec, device="cpu").run(mode)
     assert report.mode == mode and report.stats.frames_total == 12
-    axes, kw, item = _SWEEP_REFUSALS[mode]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)
+    axes, kw, want = _SWEEP_REFUSALS[mode]
+    if want.startswith("item"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{want}"):
+            tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)
+        return
+    sweep = tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)
+    assert sweep.backend == "batched" and sweep.meta["engine"] == want and len(sweep) == 1

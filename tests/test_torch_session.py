@@ -117,13 +117,16 @@ def test_cli_refuses_sweep_and_a_missing_card(tmp_path, capsys, monkeypatch):
         tsession.Session(tsession.ScenarioSpec.from_json(SPECS[0]))
 
 
-def test_run_sweep_names_the_roadmap():
+def test_run_sweep_names_the_roadmap(tmp_path):
     """A single-stream grid runs; the compile cache the reference offers is
-    refused with its ROADMAP.md item."""
+    accepted and recorded as the port's in-process cache, with nothing
+    written to its directory."""
     session = tsession.Session(tsession.ScenarioSpec(policy="local"), device=CPU)
     assert len(session.run_sweep(tsession.SweepGrid())) == 1
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*item 8"):
-        session.run_sweep(tsession.SweepGrid(), compile_cache="cache")
+    cache = tmp_path / "cache"
+    report = session.run_sweep(tsession.SweepGrid(), compile_cache=str(cache))
+    assert len(report) == 1 and report.meta["compile_cache"]["persistent"] is False
+    assert not cache.exists()
 
 
 def test_module_entry_point_runs(tmp_path):

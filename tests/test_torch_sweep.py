@@ -6,8 +6,10 @@ points streamed) equal the reference's on the same grids; grids and
 reports written by either package load in the other; chunking and
 ``keep_points=False`` change no result; the CLI prints the reference's
 stats and refuses bad input with exit 2 and one ``error:`` line.  What the
-port does not have yet — the fleet and online sweep engines and the
-compile cache — raises ``NotImplementedError`` naming its ROADMAP.md item.
+port does not have yet, the fleet sweep engine, raises
+``NotImplementedError`` naming its ROADMAP.md item; the online sweep engine
+and the compile cache run (tests/test_torch_online_sweep.py and
+tests/test_torch_compile_cache.py hold them to the reference).
 """
 from __future__ import annotations
 
@@ -137,21 +139,24 @@ def test_chunked_and_streamed_equal_unchunked(name, params):
     assert chunked.meta["summary"] == streamed.meta["summary"] == summary.to_json()
 
 
-def test_not_ported_engines_name_their_roadmap_item(monkeypatch):
-    """Grids the reference runs on its fleet or online engines, and its
-    compile cache, raise instead of running another way."""
+def test_not_ported_engines_name_their_roadmap_item(monkeypatch, tmp_path):
+    """Grids the reference runs on its fleet engine raise instead of running
+    another way; online grids run on the batched online engine, and the
+    compile cache (argument or environment) is accepted, recorded as the
+    port's in-process cache, and writes nothing."""
     fleet = tsession.Session(tsession.ScenarioSpec.from_json(_spec("max_accuracy", fleet={"n_clients": 2})),
                              device=CPU)
     with pytest.raises(NotImplementedError, match=r"sim_multi_batch.*ROADMAP.md.*item 6"):
         fleet.run_sweep(tsession.SweepGrid(n_clients=(1, 2)))
     online = tsession.Session(tsession.ScenarioSpec.from_json(_spec("max_utility", {"alpha": 200.0})), device=CPU)
-    with pytest.raises(NotImplementedError, match=r"sim_online_batch.*ROADMAP.md.*item 7"):
-        online.run_sweep(tsession.SweepGrid(deadline_ms=(150.0,)), mode="online")
-    with pytest.raises(NotImplementedError, match=r"compile_cache.*ROADMAP.md.*item 8"):
-        online.run_sweep(tsession.SweepGrid(), compile_cache="cache")
-    monkeypatch.setenv("REPRO_COMPILE_CACHE", "cache")
-    with pytest.raises(NotImplementedError, match=r"item 8"):
-        online.run_sweep(tsession.SweepGrid())
+    report = online.run_sweep(tsession.SweepGrid(deadline_ms=(150.0,)), mode="online")
+    assert report.backend == "batched" and report.meta["engine"] == "sim_online_batch"
+    cache = tmp_path / "cache"
+    report = online.run_sweep(tsession.SweepGrid(), compile_cache=str(cache))
+    assert report.meta["compile_cache"] == {"dir": str(cache), "persistent": False, "scope": "process"}
+    monkeypatch.setenv("REPRO_COMPILE_CACHE", str(cache))
+    assert online.run_sweep(tsession.SweepGrid()).meta["compile_cache"]["dir"] == str(cache)
+    assert not cache.exists()
 
 
 def test_batched_engine_asks_for_the_card_by_default(monkeypatch):
@@ -189,16 +194,27 @@ def test_cli_sweep_equals_reference(name, params, tmp_path, capsys):
     assert len(tsession.SweepReport.from_json(out.read_text())) == 4
 
 
-@pytest.mark.parametrize("grid,extra", [
-    ("{not json", []),
-    (json.dumps({"bandwidth": [1.0]}), []),  # unknown axis
-    (json.dumps({"deadline_ms": 150.0}), []),  # a scalar axis
-    (json.dumps({"deadline_ms": [150.0]}), ["--compile-cache", "cache"]),  # not ported
-    (json.dumps({"deadline_ms": [150.0]}), ["--mode", "online"]),  # the online engine: not ported
+@pytest.mark.parametrize("grid,extra,meta", [
+    ("{not json", [], None),
+    (json.dumps({"bandwidth": [1.0]}), [], None),  # unknown axis
+    (json.dumps({"deadline_ms": 150.0}), [], None),  # a scalar axis
+    # Options that now run: the report's meta records them.
+    (json.dumps({"deadline_ms": [150.0]}), ["--compile-cache", "cache"],
+     {"compile_cache": {"dir": "cache", "persistent": False, "scope": "process"}}),
+    (json.dumps({"deadline_ms": [150.0]}), ["--mode", "online"], {"mode": "online", "engine": "sim_online_batch"}),
 ], ids=["bad-json", "unknown-axis", "scalar-axis", "compile-cache", "online-engine"])
-def test_cli_sweep_errors_exit_2_with_one_line(grid, extra, tmp_path, capsys):
+def test_cli_sweep_errors_exit_2_with_one_line(grid, extra, meta, tmp_path, capsys, monkeypatch):
+    """Bad grids exit 2 with one ``error:`` line; ``--compile-cache`` and
+    ``--mode online`` run and are recorded in the report's meta."""
+    monkeypatch.chdir(tmp_path)
     spec, path = tmp_path / "spec.json", tmp_path / "grid.json"
     spec.write_text(json.dumps(_spec("max_accuracy")))
     path.write_text(grid)
     rc, out, err = _cli(tsession, ["sweep", str(spec), "--grid", str(path), "--device", "cpu", *extra], capsys)
-    assert rc == 2 and out == "" and err.startswith("error: ") and err.count("\n") == 1, err
+    if meta is None:
+        assert rc == 2 and out == "" and err.startswith("error: ") and err.count("\n") == 1, err
+        return
+    report = tsession.SweepReport.from_json(out)
+    assert rc == 0 and report.backend == "batched" and len(report) == 1
+    assert {k: report.meta[k] for k in meta} == meta
+    assert not (tmp_path / "cache").exists()
