@@ -52,7 +52,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   policies: 20-point golden grids (the max_* policies also
                   under a piecewise trace, the track policies on their own
                   grid) against SWEEP_GOLDENS, the reference's numbers; then
-                  1000 points x 900 frames a policy, twice, every 20th point
+                  1000 points x 900 frames a policy, twice, every 40th point
                   re-run on the host CPU bit for bit; max_utility over
                   10,000 points chunked against unchunked; the per-point
                   loop on the card at 10 and 100 points; ms per point,
@@ -66,12 +66,28 @@ Phases (each raises on failure, so any failure exits non-zero):
                   every point against the per-point run_online loop on the
                   card; the same grid over 900 frames with every 10th point
                   re-run on the host CPU bit for bit
- 11. cache        the sweep phase's 10,000-point max_utility grid in chunks,
+ 11. fleet        Session.run_sweep on fleet grids through the lane-batched
+                  fleet engine (core/sim_multi_batch) on device="cuda" for
+                  the seven batched_multi policies: sub-grids of
+                  tests/test_sim_multi_batch.py's golden grids (all three
+                  allocations, a piecewise shared link, capacity 0, a
+                  backlog gate, weights and priorities) against
+                  FLEET_GOLDENS, the reference's numbers; then the
+                  multistream bench's widths, 60 frames: 1008 points
+                  (bandwidth x deadline x n_clients 2/4/8 x allocation)
+                  for offload and max_*, 216 for the others, each twice,
+                  every 50th point against the per-point run_multi loop on
+                  the card and against the engine on the host CPU; ms per
+                  point, groups, rounds, host reads per round, drain
+                  replays, peak card memory
+ 12. cache        the sweep phase's 10,000-point max_utility grid in chunks,
                   without the cache of captured lane programs
                   (core/sweep_shard), then with it twice, under
                   CompileCounter: captures, hits, wall seconds, the memory
                   the cached programs hold; results equal in every field
- 12. report       {"kernels": [...]} line, then the contract's last line
+ 13. report       wall seconds of every phase, the {"kernels": [...]} line
+                  (both kernels: launches on the main path, 0 in phases
+                  8-12), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, serving) sets both kernels'
 launch counts to 0 just before it runs and reads them just after; while
@@ -208,7 +224,7 @@ SWEEP_DL = [100.0, 150.0, 200.0, 250.0, 350.0]
 SWEEP_FPS = [10.0, 15.0, 24.0, 30.0, 60.0]
 SWEEP_TRACE = {"kind": "piecewise", "rtt_ms": 60.0,  # steps through the 30 s stream
                "points": [[0.0, 3.0], [5.0, 0.8], [10.0, 6.0], [15.0, 1.5], [20.0, 4.0], [25.0, 0.5]]}
-CPU_CHECK_EVERY = 20  # the host CPU re-runs every 20th full-width point: 50 a policy
+CPU_CHECK_EVERY = 40  # the host CPU re-runs every 40th full-width point: 25 a policy
 CHUNK_POINTS, CHUNK_SIZE = 10_000, 2500  # max_utility at 24 frames, chunked against unchunked
 PROFILE_FRAMES = 300  # the profiled group's stream (eager rounds take ~20 ms each)
 REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 100 points
@@ -237,6 +253,35 @@ ADAPT_FRAMES, ADAPT_LONG_FRAMES = 60, 900
 ADAPT_GRID = {"deadline_ms": [200.0, 208.0, 216.0, 224.0, 232.0],
               "rtt_ms": [50.0 + 60.0 * i / 200 for i in range(200)]}
 ONLINE_CPU_EVERY = 10
+
+# The fleet phase: Session.run_sweep on fleet grids through the lane-batched
+# fleet engine (core/sim_multi_batch), held against the reference's numbers
+# (FLEET_GOLDENS; tests/test_torch_fleet_goldens.py holds the table against
+# the reference package), then at the multistream bench's widths against the
+# per-point run_multi loop on the card and against itself on the host CPU.
+# Base params of each batched_multi policy (tests/test_sim_multi_batch.py:
+# 192-198; max_* at the bench's 10 ms grid at full width, FLEET_WIDE_PARAMS):
+FLEET_PARAMS = {
+    "offload": {}, "max_accuracy": {}, "max_utility": {"alpha": 150.0}, "jax_accuracy": {},
+    "jax_utility": {"alpha": 150.0}, "track_accuracy": {"k_max": 5}, "track_fixed": {"k": 3},
+}
+FLEET_GOLD_FRAMES = 16  # tests/test_sim_multi_batch.py:36
+FLEET_PIECEWISE = [[0.0, 6.0], [0.2, 1.5], [0.35, 9.0]]  # tests/test_sim_multi_batch.py:371, :400
+ALLOCATIONS3 = ["weighted_fair", "priority", "fifo"]
+# benchmarks/multistream_bench.py:44-58, 140-163: 60 frames, bandwidth x
+# deadline x n_clients x allocation.  1000 is no multiple of the 3 x 3 fleet
+# sizes and allocations, so 14 bandwidths x 8 deadlines x 9 = 1008 points;
+# the deadlines span three window buckets (W = 5, 6, 7 at 30 fps).
+FLEET_FRAMES = 60
+FLEET_GRID = {"bandwidth_mbps": [1.0 + 0.5 * i for i in range(14)],
+              "deadline_ms": [180.0, 190.0, 200.0, 210.0, 220.0, 230.0, 240.0, 250.0],
+              "n_clients": [2, 4, 8], "allocation": ALLOCATIONS3}
+FLEET_SMALL_GRID = {**FLEET_GRID, "bandwidth_mbps": [1.0, 2.5, 4.0, 6.0, 9.0, 12.0],  # 216 points
+                    "deadline_ms": [180.0, 200.0, 220.0, 240.0]}
+FLEET_WIDE = ("offload", "max_accuracy", "max_utility")  # 1008 points; the others at 216; each twice
+FLEET_WIDE_PARAMS = {"max_accuracy": {"grid": 10e-3}, "max_utility": {"alpha": 150.0}}  # the bench's grid
+FLEET_BASE = {"trace": {"kind": "constant", "mbps": 6.0}, "fleet": {"n_clients": 2, "capacity": 4}}
+FLEET_SAMPLE_EVERY = 50  # every 50th full-width point against the loop and the host CPU
 
 
 def log(msg: str) -> None:
@@ -1375,7 +1420,205 @@ def phase_online(torch, core, session, scenariogen, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 11. cache: the per-shape cache of captured lane programs
+# 11. fleet: Session.run_sweep on fleet grids through the lane-batched fleet
+#     engine
+# ---------------------------------------------------------------------------
+
+
+def fleet_spec(name: str, n_frames: int, params: dict | None = None, **kw) -> dict:
+    spec = {"policy": {"name": name, "params": FLEET_PARAMS[name] if params is None else params},
+            "n_frames": n_frames, **kw}
+    if name in TRACK_POLICIES:
+        spec["workload"] = {"kind": "track"}
+    return spec
+
+
+def fleet_cases() -> dict:
+    """Case name -> (ScenarioSpec JSON, SweepGrid JSON) for every
+    batched_multi policy: sub-grids of tests/test_sim_multi_batch.py's
+    golden grids at 16 frames — the small grid (:93-107), the planner grid
+    (:218-228), the piecewise shared link (:363-418), capacity 0 and a
+    backlog-gated starved link (:272-296), weights and priority tiers
+    (:299-326)."""
+    small = {"trace": {"kind": "constant", "mbps": 6.0}, "fleet": {"n_clients": 2, "capacity": 2}}
+    cases = {}
+    for name in FLEET_PARAMS:
+        spec = lambda **kw: fleet_spec(name, FLEET_GOLD_FRAMES, **kw)  # noqa: E731
+        cases[f"{name}/small"] = (spec(**small), {"bandwidth_mbps": [2.5, 12.0],
+                                                  "allocation": ["weighted_fair", "fifo"]})
+        cases[f"{name}/planner"] = (spec(**small), {"bandwidth_mbps": [1.0, 9.0], "n_clients": [4],
+                                                    "allocation": ALLOCATIONS3})
+        cases[f"{name}/piecewise"] = (spec(trace={"kind": "piecewise", "points": FLEET_PIECEWISE},
+                                           fleet={"n_clients": 2, "capacity": 2}),
+                                      {"n_clients": [3], "allocation": ALLOCATIONS3})
+        cases[f"{name}/capacity"] = (spec(**{**small, "fleet": {"n_clients": 2, "capacity": 0}}),
+                                     {"allocation": ["weighted_fair", "fifo"]})
+        cases[f"{name}/backlog"] = (spec(trace={"kind": "constant", "mbps": 1.0},
+                                         fleet={"n_clients": 3, "capacity": 2, "backlog_limit": 0.05}),
+                                    {"allocation": ["weighted_fair"]})
+        cases[f"{name}/weights"] = (spec(trace={"kind": "constant", "mbps": 9.0},
+                                         fleet={"n_clients": 4, "allocation": "priority", "capacity": 1,
+                                                "weights": [3.0, 1.0, 1.0, 0.5], "priorities": [0, 0, 2, 2]}),
+                                    {"bandwidth_mbps": [4.0, 9.0]})
+    return cases
+
+
+def fleet_row(streams, meta) -> list:
+    """One fleet point: each client's frames total, processed, missed,
+    offloaded, planner calls and accuracy sum, then the server's jobs and
+    utilization and the scheduler's grants and denials."""
+    return [[s.frames_total, s.frames_processed, s.frames_missed_deadline, s.frames_offloaded, s.schedule_calls,
+             s.accuracy_sum] for s in streams] + [meta["server_jobs"], meta["server_utilization"], meta["grants"],
+                                                   meta["denials"]]
+
+
+def fleet_rows(report) -> list:
+    """:func:`fleet_row` of every point of a fleet SweepReport."""
+    return [fleet_row(p.streams, p.meta) for p in report.points]
+
+
+def fleet_table(session, run) -> dict:
+    """Every case of :func:`fleet_cases` through ``run(spec, grid)``."""
+    return {name: fleet_rows(run(session.ScenarioSpec.from_json(spec), session.SweepGrid.from_json(grid)))
+            for name, (spec, grid) in fleet_cases().items()}
+
+
+def fleet_agree(name: str, got: list, want: list, tol: float) -> bool:
+    """The reference's fleet contract: integer stats, server jobs, grants
+    and denials exact, accuracy sums and server utilization within ``tol``
+    (MULTI_TOL); with equal weights (every case but ``*/weights``), every
+    field bit-equal."""
+    if not name.endswith("/weights"):
+        return got == want
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w) or g[-4] != w[-4] or g[-2:] != w[-2:] or abs(g[-3] - w[-3]) > tol:
+            return False
+        for gc, wc in zip(g[:-4], w[:-4]):
+            if gc[:5] != wc[:5] or abs(gc[5] - wc[5]) > tol:
+                return False
+    return True
+
+
+def fleet_scenarios(core, session, spec, grid, every: int):
+    """The fleet engine's scenarios for every ``every``-th grid point, as
+    run_sweep builds them."""
+    specs = [session._apply_point(spec, p) for p in grid.points()[::every]]
+    return [core.sim_multi_batch.FleetScenario(
+        stream=s.stream, n_frames=s.n_frames, bw_segments=s.trace.segments(), rtt=s.trace.rtt_s,
+        n_clients=s.fleet.n_clients, allocation=s.fleet.allocation, capacity=s.fleet.capacity,
+        backlog_limit=s.fleet.backlog_limit, weights=s.fleet.weights, priorities=s.fleet.priorities,
+        params=s.policy.params, workload=s.workload) for s in specs]
+
+
+def phase_fleet(torch, core, session, smi: str) -> None:
+    """The seven batched_multi policies through ``Session.run_sweep`` on fleet
+    grids on the card: FLEET_GOLDENS, then the multistream bench's widths
+    against the per-point run_multi loop on the card and the host CPU."""
+    t_phase = time.perf_counter()
+    tol = core.sim_multi_batch.MULTI_TOL
+
+    def batched(spec, grid):
+        report = session.Session(spec, device=DEVICE).run_sweep(grid, backend="batched")
+        check(report.meta.get("engine") == "sim_multi_batch", f"fleet sweep ran on {report.meta.get('engine')}")
+        return report
+
+    table = fleet_table(session, batched)
+    bad = sorted(n for n in FLEET_GOLDENS if not fleet_agree(n, table.get(n, []), FLEET_GOLDENS[n], tol))
+    for name in bad:
+        log(f"fleet: {name}: port {table.get(name)} reference {FLEET_GOLDENS[name]}")
+    check(table.keys() == FLEET_GOLDENS.keys(), f"fleet cases {sorted(table)} != FLEET_GOLDENS")
+    check(not bad, f"fleet results differ from the reference's at {bad}")
+    bit_equal = sum(g == w for n in table for g, w in zip(table[n], FLEET_GOLDENS[n]))
+    log(f"fleet: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
+        f"contract on device={DEVICE} ({bit_equal} bit-equal in every field) in {time.perf_counter() - t_phase:.1f} s")
+
+    for name in FLEET_PARAMS:
+        spec = session.ScenarioSpec.from_json(fleet_spec(name, FLEET_FRAMES, FLEET_WIDE_PARAMS.get(name), **FLEET_BASE))
+        grid = session.SweepGrid.from_json(FLEET_GRID if name in FLEET_WIDE else FLEET_SMALL_GRID)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        first, s1 = timed(torch, lambda: batched(spec, grid))
+        second, s2 = timed(torch, lambda: batched(spec, grid))
+        check(fleet_rows(first) == fleet_rows(second), f"{name}: two runs of the same fleet grid differ")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20 if DEVICE == "cuda" else float("nan")
+        n = len(second.points)
+        check(n == len(grid), f"{name}: {n} fleet points")
+        groups = second.meta["groups"]
+        rounds = sum(g["rounds"] for g in groups)
+        reads = sum(g["host_reads"] for g in groups)
+        replays = sum(g.get("drain_replays", 0) for g in groups)
+        check(reads == rounds + len(groups), f"{name}: host reads {reads} != rounds {rounds} + groups {len(groups)}")
+        # Every FLEET_SAMPLE_EVERY-th point: the per-point loop on the card,
+        # and the same engine on the host CPU.
+        pts = grid.points()[::FLEET_SAMPLE_EVERY]
+        loop_rows, s_loop = [], 0.0
+        for pt in pts:
+            one = session._apply_point(spec, pt)
+            rep, s = timed(torch, lambda: session.Session(one, device=DEVICE).run_multi())
+            loop_rows.append(fleet_row(rep.streams, rep.meta))
+            s_loop += s
+        card_rows = fleet_rows(second)[::FLEET_SAMPLE_EVERY]
+        loop_bad = sum(not fleet_agree(f"{name}/weights", [g], [w], tol) for g, w in zip(card_rows, loop_rows))
+        bit_loop = sum(g == w for g, w in zip(card_rows, loop_rows))
+        check(loop_bad == 0, f"{name}: the fleet engine differs from the per-point loop at {loop_bad} points")
+        scens = fleet_scenarios(core, session, spec, grid, FLEET_SAMPLE_EVERY)
+        cpu, s_cpu = timed(torch, lambda: core.sim_multi_batch.simulate_multi_batch(
+            name, list(spec.models), scens, device="cpu"))
+        cpu_rows = [fleet_row(ms.per_client, {"server_jobs": ms.server_jobs,
+                                              "server_utilization": ms.server_utilization, **m}) for ms, m in cpu]
+        check(cpu_rows == card_rows, f"{name}: the card and the host CPU differ on the fleet grid")
+        log(f"fleet: {name}: {n} points x {FLEET_FRAMES} frames on device={DEVICE}: {1e3 * s1 / n:.3f} ms/point "
+            f"(first call), {1e3 * s2 / n:.3f} (second); per-point run_multi loop on device={DEVICE} {1e3 * s_loop / len(pts):.3f} ms/point over "
+            f"{len(pts)} points ({bit_loop} bit-equal, all within the contract); host CPU "
+            f"{1e3 * s_cpu / len(cpu):.3f} ms/point, bit-equal; {len(groups)} groups, rounds per group mean "
+            f"{rounds / len(groups):.1f} max {max(g['rounds'] for g in groups)}, host reads per round "
+            f"{(reads - len(groups)) / rounds:.3f} (+1 per group), drain replays {replays} "
+            f"({100 * replays / rounds:.1f}% of rounds at E = {core.sim_multi_batch.DRAIN_EVENTS}), peak card "
+            f"memory {peak:.1f} MiB above what earlier phases hold ({smi})")
+    if DEVICE == "cuda":
+        profile_fleet_round(torch, core, session, smi)
+    log(f"fleet: phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def profile_fleet_round(torch, core, session, smi: str) -> None:
+    """Where a fleet round's time goes: the full-width max_accuracy group
+    of 8-client weighted_fair fleets at deadline 200 ms (W = 6, 14 lanes),
+    its rounds replayed as CUDA graphs and issued eagerly: wall time of a
+    run that builds its lane program afresh (and captures its graphs), of
+    a second run, and the device's busy time from torch.profiler in a
+    third."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = session.ScenarioSpec.from_json(fleet_spec("max_accuracy", FLEET_FRAMES, FLEET_WIDE_PARAMS["max_accuracy"],
+                                                     **FLEET_BASE))
+    grid = session.SweepGrid.from_json({**FLEET_GRID, "deadline_ms": [200.0], "n_clients": [8],
+                                        "allocation": ["weighted_fair"]})
+    scens = fleet_scenarios(core, session, spec, grid, 1)
+    run = lambda groups=None: core.sim_multi_batch.simulate_multi_batch(  # noqa: E731
+        "max_accuracy", list(spec.models), scens, device=DEVICE, groups=groups)
+    shard = core.sweep_shard
+    eager = mock.patch.object(shard.LaneProgram, "start", lambda prog: prog.init())  # never captures
+    for label, mode in (("graphed", contextlib.nullcontext()), ("eager", eager)):
+        with mode, mock.patch.object(shard, "PROGRAMS", shard.LaneCache()):
+            groups = []
+            _, wall = timed(torch, lambda: run(groups))
+            _, again = timed(torch, run)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        (g,) = groups
+        log(f"fleet: profile, max_accuracy group {g['key']} of {g['lanes']} lanes over {FLEET_FRAMES} frames, "
+            f"rounds {label}: {g['rounds']} rounds and {g['drain_replays']} drain replays in {1e3 * wall:.1f} ms "
+            f"built afresh, {1e3 * again:.1f} ms again ({1e3 * again / g['rounds']:.3f} ms a round); device busy "
+            f"{busy:.1f} ms, {100 * busy / (1e3 * again):.1f}% of the second run's wall ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# 12. cache: the per-shape cache of captured lane programs
 # ---------------------------------------------------------------------------
 
 
@@ -1582,6 +1825,668 @@ ONLINE_GOLDENS = {'max_accuracy/dead': [[45, 45, 0, 0, 8, 20.979999999999997, 8,
  'max_utility/square': [[45, 39, 3, 5, 8, 20.039999999999992, 8, 1553490.0],
                         [45, 40, 2, 4, 8, 19.73999999999999, 8, 1910699.9999999995]]}
 
+# The reference's numbers for every case of fleet_cases(), from its per-point
+# run_multi loop (tests/test_torch_fleet_goldens.py checks this table against
+# ``repro``): per point, per client [frames total, processed, missed,
+# offloaded, planner calls, accuracy sum], then [server jobs, server
+# utilization, grants, denials].
+FLEET_GOLDENS = {'offload/small': [[[16, 8, 0, 8, 16, 1.5999999999999999], [16, 0, 0, 0, 16, 0.0], 8, 1.0350000000000001, 8, 24],
+                   [[16, 1, 15, 1, 16, 0.2], [16, 1, 15, 1, 16, 0.2], 32, 4.139999999999998, 32, 0],
+                   [[16, 8, 0, 8, 16, 3.36], [16, 0, 0, 0, 16, 0.0], 8, 1.0350000000000001, 8, 24],
+                   [[16, 0, 16, 0, 16, 0.0], [16, 0, 16, 0, 16, 0.0], 32, 4.139999999999998, 32, 0]],
+ 'offload/planner': [[[16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      0,
+                      0.0,
+                      64,
+                      0],
+                     [[16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      0,
+                      0.0,
+                      64,
+                      0],
+                     [[16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      64,
+                      8.279999999999996,
+                      64,
+                      0],
+                     [[16, 8, 0, 8, 16, 1.5999999999999999],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      8,
+                      1.0350000000000001,
+                      8,
+                      56],
+                     [[16, 8, 0, 8, 16, 1.5999999999999999],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      8,
+                      1.0350000000000001,
+                      8,
+                      56],
+                     [[16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      [16, 0, 16, 0, 16, 0.0],
+                      64,
+                      8.279999999999996,
+                      64,
+                      0]],
+ 'offload/piecewise': [[[16, 8, 0, 8, 16, 2.0500000000000003],
+                        [16, 0, 0, 0, 16, 0.0],
+                        [16, 0, 0, 0, 16, 0.0],
+                        8,
+                        0.4725000000000001,
+                        23,
+                        25],
+                       [[16, 8, 0, 8, 16, 2.0500000000000003],
+                        [16, 0, 0, 0, 16, 0.0],
+                        [16, 0, 0, 0, 16, 0.0],
+                        8,
+                        0.4725000000000001,
+                        23,
+                        25],
+                       [[16, 0, 16, 0, 16, 0.0],
+                        [16, 0, 16, 0, 16, 0.0],
+                        [16, 0, 16, 0, 16, 0.0],
+                        48,
+                        6.209999999999996,
+                        48,
+                        0]],
+ 'offload/capacity': [[[16, 0, 0, 0, 16, 0.0], [16, 0, 0, 0, 16, 0.0], 0, 0.0, 0, 32],
+                      [[16, 0, 16, 0, 16, 0.0], [16, 0, 16, 0, 16, 0.0], 32, 4.139999999999998, 32, 0]],
+ 'offload/backlog': [[[16, 0, 0, 0, 16, 0.0], [16, 0, 0, 0, 16, 0.0], [16, 0, 0, 0, 16, 0.0], 0, 0.0, 48, 0]],
+ 'offload/weights': [[[16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 6, 0, 6, 16, 1.2],
+                      [16, 0, 0, 0, 16, 0.0],
+                      6,
+                      0.7762500000000001,
+                      6,
+                      58],
+                     [[16, 0, 0, 0, 16, 0.0],
+                      [16, 0, 0, 0, 16, 0.0],
+                      [16, 6, 0, 6, 16, 2.52],
+                      [16, 0, 0, 0, 16, 0.0],
+                      6,
+                      0.7762500000000001,
+                      6,
+                      58]],
+ 'max_accuracy/small': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0],
+                        [[16, 14, 2, 0, 4, 7.059999999999999],
+                         [16, 14, 2, 0, 4, 7.059999999999999],
+                         4,
+                         0.06749999999999999,
+                         8,
+                         0],
+                        [[16, 16, 0, 2, 4, 8.11], [16, 16, 0, 2, 4, 7.999999999999999], 4, 0.06749999999999999, 7, 1],
+                        [[16, 0, 16, 0, 16, 0.0], [16, 0, 16, 0, 16, 0.0], 32, 4.139999999999998, 32, 0]],
+ 'max_accuracy/planner': [[[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 0, 16, 0, 16, 0.0],
+                           [16, 0, 16, 0, 16, 0.0],
+                           [16, 0, 16, 0, 16, 0.0],
+                           [16, 0, 16, 0, 16, 0.0],
+                           64,
+                           8.279999999999996,
+                           64,
+                           0]],
+ 'max_accuracy/piecewise': [[[16, 16, 0, 2, 4, 7.859999999999999],
+                             [16, 16, 0, 0, 3, 7.77],
+                             [16, 16, 0, 0, 3, 7.77],
+                             2,
+                             0.033749999999999995,
+                             8,
+                             2],
+                            [[16, 16, 0, 2, 4, 7.859999999999999],
+                             [16, 16, 0, 0, 3, 7.77],
+                             [16, 16, 0, 0, 3, 7.77],
+                             2,
+                             0.033749999999999995,
+                             8,
+                             2],
+                            [[16, 12, 4, 0, 6, 6.02],
+                             [16, 12, 4, 0, 6, 6.02],
+                             [16, 12, 4, 0, 6, 6.02],
+                             12,
+                             1.5524999999999998,
+                             18,
+                             0]],
+ 'max_accuracy/capacity': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 0, 6],
+                           [[16, 14, 2, 0, 4, 7.169999999999998],
+                            [16, 14, 2, 0, 4, 7.169999999999998],
+                            4,
+                            0.06749999999999999,
+                            8,
+                            0]],
+ 'max_accuracy/backlog': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 9, 0]],
+ 'max_accuracy/weights': [[[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           6,
+                           6],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           6,
+                           6]],
+ 'max_utility/small': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0],
+                       [[16, 14, 2, 0, 3, 7.059999999999999],
+                        [16, 14, 2, 0, 3, 7.059999999999999],
+                        4,
+                        0.06749999999999999,
+                        6,
+                        0],
+                       [[16, 16, 0, 2, 3, 7.899999999999999], [16, 16, 0, 0, 3, 7.66], 2, 0.25875000000000004, 4, 2],
+                       [[16, 12, 3, 0, 3, 6.239999999999998],
+                        [16, 12, 3, 0, 3, 6.239999999999998],
+                        6,
+                        0.7762500000000001,
+                        6,
+                        0]],
+ 'max_utility/planner': [[[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 12, 3, 0, 3, 6.239999999999998],
+                          [16, 12, 3, 0, 3, 6.239999999999998],
+                          [16, 12, 3, 0, 3, 6.239999999999998],
+                          [16, 12, 3, 0, 3, 6.239999999999998],
+                          12,
+                          1.5524999999999998,
+                          12,
+                          0]],
+ 'max_utility/piecewise': [[[16, 16, 0, 1, 3, 7.76],
+                            [16, 16, 0, 0, 3, 7.66],
+                            [16, 16, 0, 0, 3, 7.66],
+                            1,
+                            0.016874999999999998,
+                            7,
+                            2],
+                           [[16, 16, 0, 1, 3, 7.76],
+                            [16, 16, 0, 0, 3, 7.66],
+                            [16, 16, 0, 0, 3, 7.66],
+                            1,
+                            0.016874999999999998,
+                            7,
+                            2],
+                           [[16, 15, 1, 0, 3, 7.359999999999999],
+                            [16, 15, 1, 0, 3, 7.359999999999999],
+                            [16, 15, 1, 0, 3, 7.359999999999999],
+                            3,
+                            0.38812500000000005,
+                            9,
+                            0]],
+ 'max_utility/capacity': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 0, 6],
+                          [[16, 14, 2, 0, 3, 7.059999999999999],
+                           [16, 14, 2, 0, 3, 7.059999999999999],
+                           4,
+                           0.5175000000000001,
+                           6,
+                           0]],
+ 'max_utility/backlog': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 9, 0]],
+ 'max_utility/weights': [[[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          6,
+                          6],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 2, 3, 7.899999999999999],
+                          [16, 16, 0, 0, 3, 7.66],
+                          2,
+                          0.25875000000000004,
+                          4,
+                          8]],
+ 'jax_accuracy/small': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0],
+                        [[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0],
+                        [[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0],
+                        [[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0]],
+ 'jax_accuracy/planner': [[[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           12,
+                           0]],
+ 'jax_accuracy/piecewise': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 9, 0],
+                            [[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 9, 0],
+                            [[16, 16, 0, 0, 3, 7.77],
+                             [16, 16, 0, 0, 3, 7.77],
+                             [16, 16, 0, 0, 3, 7.77],
+                             0,
+                             0.0,
+                             9,
+                             0]],
+ 'jax_accuracy/capacity': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 0, 6],
+                           [[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 6, 0]],
+ 'jax_accuracy/backlog': [[[16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], [16, 16, 0, 0, 3, 7.77], 0, 0.0, 9, 0]],
+ 'jax_accuracy/weights': [[[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           6,
+                           6],
+                          [[16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           [16, 16, 0, 0, 3, 7.77],
+                           0,
+                           0.0,
+                           6,
+                           6]],
+ 'jax_utility/small': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0],
+                       [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0],
+                       [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0],
+                       [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0]],
+ 'jax_utility/planner': [[[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          12,
+                          0]],
+ 'jax_utility/piecewise': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 9, 0],
+                           [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 9, 0],
+                           [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 9, 0]],
+ 'jax_utility/capacity': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 0, 6],
+                          [[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 6, 0]],
+ 'jax_utility/backlog': [[[16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], [16, 16, 0, 0, 3, 7.66], 0, 0.0, 9, 0]],
+ 'jax_utility/weights': [[[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          6,
+                          6],
+                         [[16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          [16, 16, 0, 0, 3, 7.66],
+                          0,
+                          0.0,
+                          6,
+                          6]],
+ 'track_accuracy/small': [[[16, 16, 0, 0, 8, 7.696], [16, 16, 0, 0, 8, 7.696], 0, 0.0, 16, 0],
+                          [[16, 16, 0, 0, 8, 7.696], [16, 16, 0, 0, 8, 7.696], 0, 0.0, 16, 0],
+                          [[16, 16, 0, 0, 8, 7.696], [16, 16, 0, 0, 8, 7.696], 0, 0.0, 16, 0],
+                          [[16, 0, 16, 0, 16, 0.0], [16, 0, 16, 0, 16, 0.0], 32, 4.139999999999998, 32, 0]],
+ 'track_accuracy/planner': [[[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             32,
+                             0],
+                            [[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             32,
+                             0],
+                            [[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             32,
+                             0],
+                            [[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             32,
+                             0],
+                            [[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             32,
+                             0],
+                            [[16, 0, 16, 0, 16, 0.0],
+                             [16, 0, 16, 0, 16, 0.0],
+                             [16, 0, 16, 0, 16, 0.0],
+                             [16, 0, 16, 0, 16, 0.0],
+                             64,
+                             8.279999999999996,
+                             64,
+                             0]],
+ 'track_accuracy/piecewise': [[[16, 16, 0, 0, 8, 7.696],
+                               [16, 16, 0, 0, 8, 7.696],
+                               [16, 16, 0, 0, 8, 7.696],
+                               0,
+                               0.0,
+                               24,
+                               0],
+                              [[16, 16, 0, 0, 8, 7.696],
+                               [16, 16, 0, 0, 8, 7.696],
+                               [16, 16, 0, 0, 8, 7.696],
+                               0,
+                               0.0,
+                               24,
+                               0],
+                              [[16, 12, 4, 0, 10, 5.772],
+                               [16, 12, 4, 0, 10, 5.772],
+                               [16, 12, 4, 0, 10, 5.772],
+                               12,
+                               1.5524999999999998,
+                               30,
+                               0]],
+ 'track_accuracy/capacity': [[[16, 16, 0, 0, 8, 7.696], [16, 16, 0, 0, 8, 7.696], 0, 0.0, 0, 16],
+                             [[16, 16, 0, 0, 8, 7.696], [16, 16, 0, 0, 8, 7.696], 0, 0.0, 16, 0]],
+ 'track_accuracy/backlog': [[[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             24,
+                             0]],
+ 'track_accuracy/weights': [[[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             16,
+                             16],
+                            [[16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             [16, 16, 0, 0, 8, 7.696],
+                             0,
+                             0.0,
+                             16,
+                             16]],
+ 'track_fixed/small': [[[16, 16, 0, 0, 6, 7.208500000000001], [16, 16, 0, 0, 6, 7.208500000000001], 0, 0.0, 12, 0],
+                       [[16, 16, 0, 0, 6, 7.208500000000001], [16, 16, 0, 0, 6, 7.208500000000001], 0, 0.0, 12, 0],
+                       [[16, 16, 0, 0, 6, 7.208500000000001], [16, 16, 0, 0, 6, 7.208500000000001], 0, 0.0, 12, 0],
+                       [[16, 10, 6, 0, 6, 0.0], [16, 10, 6, 0, 6, 0.0], 12, 1.5524999999999998, 12, 0]],
+ 'track_fixed/planner': [[[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          24,
+                          0],
+                         [[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          24,
+                          0],
+                         [[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          24,
+                          0],
+                         [[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          24,
+                          0],
+                         [[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          24,
+                          0],
+                         [[16, 10, 6, 0, 6, 0.0],
+                          [16, 10, 6, 0, 6, 0.0],
+                          [16, 10, 6, 0, 6, 0.0],
+                          [16, 10, 6, 0, 6, 0.0],
+                          24,
+                          3.1049999999999986,
+                          24,
+                          0]],
+ 'track_fixed/piecewise': [[[16, 16, 0, 0, 6, 7.208500000000001],
+                            [16, 16, 0, 0, 6, 7.208500000000001],
+                            [16, 16, 0, 0, 6, 7.208500000000001],
+                            0,
+                            0.0,
+                            18,
+                            0],
+                           [[16, 16, 0, 0, 6, 7.208500000000001],
+                            [16, 16, 0, 0, 6, 7.208500000000001],
+                            [16, 16, 0, 0, 6, 7.208500000000001],
+                            0,
+                            0.0,
+                            18,
+                            0],
+                           [[16, 14, 2, 0, 6, 5.852970012500001],
+                            [16, 14, 2, 0, 6, 5.852970012500001],
+                            [16, 14, 2, 0, 6, 5.852970012500001],
+                            6,
+                            0.7762500000000001,
+                            18,
+                            0]],
+ 'track_fixed/capacity': [[[16, 16, 0, 0, 6, 7.208500000000001], [16, 16, 0, 0, 6, 7.208500000000001], 0, 0.0, 0, 12],
+                          [[16, 16, 0, 0, 6, 7.208500000000001],
+                           [16, 16, 0, 0, 6, 7.208500000000001],
+                           0,
+                           0.0,
+                           12,
+                           0]],
+ 'track_fixed/backlog': [[[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          18,
+                          0]],
+ 'track_fixed/weights': [[[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          12,
+                          12],
+                         [[16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          [16, 16, 0, 0, 6, 7.208500000000001],
+                          0,
+                          0.0,
+                          12,
+                          12]]}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1606,36 +2511,38 @@ def main() -> int:
     from repro_torch.serving.calibrate import _median_s
 
     t0 = time.perf_counter()
-    smi = phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE])
-    agg, gemm_rows = phase_kernels(torch, A, configs, common, ops, ref)
-    flash_rows = phase_flash(torch, flash_ops, flash_ref)
+    walls = {}  # phase -> wall seconds
+
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        walls[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi = phase("environment", lambda: phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE]))
+    agg, gemm_rows = phase("kernels", lambda: phase_kernels(torch, A, configs, common, ops, ref))
+    flash_rows = phase("flash", lambda: phase_flash(torch, flash_ops, flash_ref))
     torch.cuda.empty_cache()
     gemms, attns = set(), set()
     with recording(ops, "int8_matmul", gemm_key, gemms), recording(flash_ops, "flash_attention", flash_key, attns):
-        full_launches, t_ms = phase_serve_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, serving)
+        full_launches, t_ms = phase("serve_full", lambda: phase_serve_full(
+            torch, A, configs, common, quant, ops, flash_ops, ref, core, serving))
         torch.cuda.empty_cache()
-        vit_int8, vit_flash = phase_vit_full(torch, A, configs, common, quant, ops, flash_ops, flash_ref, core,
-                                             serving, _median_s)
+        vit_int8, vit_flash = phase("vit_full", lambda: phase_vit_full(
+            torch, A, configs, common, quant, ops, flash_ops, flash_ref, core, serving, _median_s))
         torch.cuda.empty_cache()
-        serving_int8, serving_flash = phase_serving(torch, ops, flash_ops, serve, session)
-    more_gemms, more_flash = phase_main_shapes(torch, ops, ref, flash_ops, flash_ref,
-                                               gemms - gemm_rows.keys(), attns - flash_rows.keys())
+        serving_int8, serving_flash = phase("serving", lambda: phase_serving(torch, ops, flash_ops, serve, session))
+    more_gemms, more_flash = phase("main shapes", lambda: phase_main_shapes(
+        torch, ops, ref, flash_ops, flash_ref, gemms - gemm_rows.keys(), attns - flash_rows.keys()))
     # The simulators run on profiles, not on models: no kernel launches.
-    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
-    phase_sim(torch, core, session, scenariogen, t_ms, smi)
-    sim_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
-    log(f"sim: kernel launches (int8_matmul, flash_attention) {sim_launches}")
-    check(sim_launches == (0, 0), "the simulators launched a model kernel")
-    torch.cuda.empty_cache()
-    phase_sweep(torch, core, session, smi)
-    sweep_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
-    log(f"sweep: kernel launches (int8_matmul, flash_attention) {sweep_launches}")
-    check(sweep_launches == (0, 0), "the sweep engine launched a model kernel")
-    for name, phase in (("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
-                        ("cache", lambda: phase_cache(torch, core, session, smi))):
+    for name, fn in (("sim", lambda: phase_sim(torch, core, session, scenariogen, t_ms, smi)),
+                     ("sweep", lambda: phase_sweep(torch, core, session, smi)),
+                     ("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
+                     ("fleet", lambda: phase_fleet(torch, core, session, smi)),
+                     ("cache", lambda: phase_cache(torch, core, session, smi))):
         torch.cuda.empty_cache()
         ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
-        phase()
+        phase(name, fn)
         launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
         log(f"{name}: kernel launches (int8_matmul, flash_attention) {launches}")
         check(launches == (0, 0), f"the {name} phase launched a model kernel")
@@ -1652,6 +2559,7 @@ def main() -> int:
     vit1 = flash_rows[(1, *VIT_SHAPE)]
     log(f"flash per frame ({n_layers} calls at batch 1, (S, T, H, KH, hd, causal, dtype) = {VIT_SHAPE}): "
         + "  ".join(f"{k}={n_layers * vit1[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms")))
+    log(f"chip_smoke: phase wall seconds {json.dumps(walls)} ({smi})")
     log(f"chip_smoke: all phases passed in {wall:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "int8_matmul",

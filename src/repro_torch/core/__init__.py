@@ -20,6 +20,7 @@ Public surface:
                                 a device (policies jax_accuracy/jax_utility),
                                 their lane-batched forms and float64 twins
   sim_batch.simulate_batch    — scenario grids lane-batched on a device
+  sim_multi_batch             — fleet grids (shared uplink + edge server), the same way
   sim_online_batch            — online (estimated-bandwidth) grids, the same way
   sweep_shard                 — the sweep engines' per-shape cache of lane
                                 programs (captured CUDA graphs on the card)
@@ -27,9 +28,8 @@ Public surface:
   bucketing                   — the sweep engine's shape groups
   controller.OnlineController — streaming controller w/ bandwidth estimation
 
-The reference's fleet sweep engine (``sim_multi_batch``) is not ported
-yet.  Declarative scenario running
-(ScenarioSpec/Session) lives one level up in ``repro_torch.session``.
+Declarative scenario running (ScenarioSpec/Session) lives one level up in
+``repro_torch.session``.
 """
 from . import (  # noqa: F401
     audit,
@@ -46,6 +46,7 @@ from . import (  # noqa: F401
     registry,
     schedule,
     sim_batch,
+    sim_multi_batch,
     sim_online_batch,
     simulator,
     sweep_shard,

@@ -122,11 +122,11 @@ class PolicyEntry:
     The three ``batched*`` flags are the reference's, set on the same
     policies, so ``Session.run_sweep`` routes a grid as the reference does.
     ``batched=True``: :mod:`repro_torch.core.sim_batch` runs whole
-    single-stream grids of this policy lane-batched on the device.
-    ``batched_multi=True`` (fleet grids) and ``batched_online=True``
-    (``mode="online"`` grids) name the reference's fleet and online sweep
-    engines, which the port does not have yet: ``run_sweep`` refuses such
-    grids with ``NotImplementedError`` rather than run them another way.
+    single-stream grids of this policy lane-batched on the device;
+    ``batched_multi=True``: :mod:`repro_torch.core.sim_multi_batch` runs
+    its fleet grids; ``batched_online=True``:
+    :mod:`repro_torch.core.sim_online_batch` runs its ``mode="online"``
+    grids.
     """
 
     name: str

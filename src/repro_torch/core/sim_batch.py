@@ -360,63 +360,73 @@ def _init_state(b, n_int: int, n_float: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _jax_accuracy_step(b, W: int, NBINS: int, strict: bool):
+    """jax_accuracy's round over a program's buffers: ``step(state)`` on the
+    state ``(head, busy, acc_sum, npu_s, proc, miss, rounds)``."""
+    ks = torch.arange(W, device=b.device)
+
+    def step(state):
+        head, busy, acc_sum, npu_s, proc, miss, rounds = state
+        active = head < b.n_frames
+        t0 = head.double() * b.gamma
+        npu_free = torch.clamp_min(busy - t0, 0.0)
+        # Reference: int(np.ceil(max(npu_free, 0.0) / grid)), clipped
+        # to the scenario's REAL bin count (not the padded one).
+        start_bin = torch.ceil(npu_free.clamp_min(0.0) / b.grid).long()
+        start_bin = torch.minimum(start_bin.clamp_min(0), b.nbins_r - 1)
+        H, choices, parents = _accuracy_dp(b.dur, b.acc32, b.arr, b.dl, start_bin, b.n_active, nbins=NBINS)
+        feasible = H.amax(dim=1) > NEG / 2
+        picks = _backtrack_bins(choices, parents, torch.argmax(H, dim=1))
+        gate = (active & feasible)[:, None] & (ks < b.n_active[:, None])
+        free_end, acc_sum, proc, miss, npu_s = _audit_scan(
+            head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
+            t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
+            free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
+            strict=strict)
+        # Infeasible window: the reference emits a horizon-1 SKIP round that
+        # leaves the NPU carry untouched.
+        busy_until = torch.where(feasible, free_end, npu_free)
+        horizon = torch.where(feasible, b.n_active, 1)
+        head = torch.where(active, head + horizon, head)
+        busy = torch.where(active, t0 + busy_until, busy)
+        rounds = rounds + active.long()
+        return head, busy, acc_sum, npu_s, proc, miss, rounds
+
+    return step
+
+
+def _jax_accuracy_inputs(c: _Common, group) -> tuple[dict, int]:
+    """jax_accuracy's per-lane inputs and the group's bin count.  Bin
+    arithmetic in f64 on the host — the same numpy expressions as
+    local_accuracy_dp_jax, over the group."""
+    grid = np.array([float(s.params["grid"]) for s in group], np.float64)
+    arr_bins = np.ceil(c.arrivals / grid[:, None]).astype(np.int32)
+    dl_bins = np.floor((c.arrivals + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
+    horizon_t = (c.n_active.astype(np.float64) - 1.0) * c.gamma + c.deadline
+    nbins_real = (np.ceil(horizon_t / grid) + 2).astype(np.int32)
+    NBINS = quant_bins(int(nbins_real.max()))
+    # inf (server-only) and over-horizon durations clamp to NBINS: both are
+    # unreachable in-bin exactly as the reference's raw values are.
+    with np.errstate(invalid="ignore"):
+        dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
+    dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
+    return dict(gamma=c.gamma, deadline=c.deadline, grid=grid, n_active=c.n_active, nbins_r=nbins_real,
+                n_frames=c.n_frames, arr=arr_bins, dl=dl_bins, dur=dur, arrivals=c.arrivals,
+                acc_stat=c.acc_stat64), NBINS
+
+
 @_planner("jax_accuracy")
 def _run_accuracy(models, scenarios, strict, run: _Run):
     def run_group(W, group):
         c = _common(models, group, W)
-        grid = np.array([float(s.params["grid"]) for s in group], np.float64)
-        # Bin arithmetic in f64 on the host — the same numpy expressions as
-        # local_accuracy_dp_jax, over the group.
-        arr_bins = np.ceil(c.arrivals / grid[:, None]).astype(np.int32)
-        dl_bins = np.floor((c.arrivals + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
-        horizon_t = (c.n_active.astype(np.float64) - 1.0) * c.gamma + c.deadline
-        nbins_real = (np.ceil(horizon_t / grid) + 2).astype(np.int32)
-        NBINS = quant_bins(int(nbins_real.max()))
-        # inf (server-only) and over-horizon durations clamp to NBINS: both
-        # are unreachable in-bin exactly as the reference's raw values are.
-        with np.errstate(invalid="ignore"):
-            dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
-        dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
+        lanes, NBINS = _jax_accuracy_inputs(c, group)
         t_start = time.perf_counter()
 
         def build(b):
-            ks = torch.arange(W, device=b.device)
+            return _jax_accuracy_step(b, W, NBINS, strict), lambda: _init_state(b, 3, 2)
 
-            def step(state):
-                head, busy, acc_sum, npu_s, proc, miss, rounds = state
-                active = head < b.n_frames
-                t0 = head.double() * b.gamma
-                npu_free = torch.clamp_min(busy - t0, 0.0)
-                # Reference: int(np.ceil(max(npu_free, 0.0) / grid)), clipped
-                # to the scenario's REAL bin count (not the padded one).
-                start_bin = torch.ceil(npu_free.clamp_min(0.0) / b.grid).long()
-                start_bin = torch.minimum(start_bin.clamp_min(0), b.nbins_r - 1)
-                H, choices, parents = _accuracy_dp(b.dur, b.acc32, b.arr, b.dl, start_bin, b.n_active,
-                                                   nbins=NBINS)
-                feasible = H.amax(dim=1) > NEG / 2
-                picks = _backtrack_bins(choices, parents, torch.argmax(H, dim=1))
-                gate = (active & feasible)[:, None] & (ks < b.n_active[:, None])
-                free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-                    head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
-                    t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
-                    free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
-                    strict=strict)
-                # Infeasible window: the reference emits a horizon-1 SKIP
-                # round that leaves the NPU carry untouched.
-                busy_until = torch.where(feasible, free_end, npu_free)
-                horizon = torch.where(feasible, b.n_active, 1)
-                head = torch.where(active, head + horizon, head)
-                busy = torch.where(active, t0 + busy_until, busy)
-                rounds = rounds + active.long()
-                return head, busy, acc_sum, npu_s, proc, miss, rounds
-
-            return step, lambda: _init_state(b, 3, 2)
-
-        state, record = run.drive(
-            W, dict(gamma=c.gamma, deadline=c.deadline, grid=grid, n_active=c.n_active, nbins_r=nbins_real,
-                    n_frames=c.n_frames, arr=arr_bins, dl=dl_bins, dur=dur, arrivals=c.arrivals,
-                    acc_stat=c.acc_stat64),
-            dict(t_npu64=c.t_npu64, acc32=c.acc_dp32), build, statics=(NBINS, strict))
+        state, record = run.drive(W, lanes, dict(t_npu64=c.t_npu64, acc32=c.acc_dp32), build,
+                                  statics=(NBINS, strict))
         _, _, acc_sum, npu_s, proc, miss, rounds = state
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s)
         return _collect(c, out, time.perf_counter() - t_start)
@@ -429,49 +439,62 @@ def _run_accuracy(models, scenarios, strict, run: _Run):
 # ---------------------------------------------------------------------------
 
 
+def _jax_utility_step(b, W: int, width: int, strict: bool):
+    """jax_utility's round over a program's buffers, on the state of
+    :func:`_jax_accuracy_step`."""
+    zero32 = torch.zeros(b.B, dtype=torch.float32, device=b.device)
+
+    def step(state):
+        head, busy, acc_sum, npu_s, proc, miss, rounds = state
+        active = head < b.n_frames
+        t0 = head.double() * b.gamma
+        npu_free = torch.clamp_min(busy - t0, 0.0)
+        (_, u, _, _), parents, actions = _utility_dp(
+            b.t_npu32, b.acc32, b.n_active, width=width, gamma=b.g32, deadline=b.d32, alpha=b.a32,
+            npu_free=npu_free.float(), first_arrival=zero32, window=b.w32, n_frames=W)
+        picks = _backtrack_slots(parents, actions, u)
+        gate = active[:, None] & (picks >= 0)  # only picked frames execute; rest SKIP
+        free_end, acc_sum, proc, miss, npu_s = _audit_scan(
+            head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
+            t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
+            free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
+            strict=strict)
+        head = torch.where(active, head + b.n_active, head)  # horizon is always n
+        busy = torch.where(active, t0 + free_end, busy)
+        rounds = rounds + active.long()
+        return head, busy, acc_sum, npu_s, proc, miss, rounds
+
+    return step
+
+
+def _jax_utility_inputs(c: _Common, group) -> dict[str, np.ndarray]:
+    """jax_utility's per-lane inputs: the f32 casts the one-stream wrapper
+    performs, in bulk."""
+    alpha = np.array([float(s.params["alpha"]) for s in group], np.float64)
+    window = np.maximum(c.n_active.astype(np.float64) * c.gamma, c.gamma)
+    return dict(gamma=c.gamma, deadline=c.deadline, n_active=c.n_active, n_frames=c.n_frames,
+                g32=c.gamma.astype(np.float32), d32=c.deadline.astype(np.float32),
+                a32=alpha.astype(np.float32), w32=window.astype(np.float32), arrivals=c.arrivals,
+                acc_stat=c.acc_stat64)
+
+
+def _jax_utility_shared(c: _Common) -> dict[str, np.ndarray]:
+    return dict(t_npu64=c.t_npu64, t_npu32=c.t_npu64.astype(np.float32), acc32=c.acc_dp32)
+
+
 @_planner("jax_utility")
 def _run_utility(models, scenarios, strict, run: _Run):
     # ``width`` is a front shape, so it joins the group key.
     def run_group(key, group):
         W, width = key
         c = _common(models, group, W)
-        alpha = np.array([float(s.params["alpha"]) for s in group], np.float64)
-        # The f32 casts the one-stream wrapper performs, in bulk.
-        window = np.maximum(c.n_active.astype(np.float64) * c.gamma, c.gamma)
         t_start = time.perf_counter()
 
         def build(b):
-            zero32 = torch.zeros(b.B, dtype=torch.float32, device=b.device)
+            return _jax_utility_step(b, W, width, strict), lambda: _init_state(b, 3, 2)
 
-            def step(state):
-                head, busy, acc_sum, npu_s, proc, miss, rounds = state
-                active = head < b.n_frames
-                t0 = head.double() * b.gamma
-                npu_free = torch.clamp_min(busy - t0, 0.0)
-                (_, u, _, _), parents, actions = _utility_dp(
-                    b.t_npu32, b.acc32, b.n_active, width=width, gamma=b.g32, deadline=b.d32, alpha=b.a32,
-                    npu_free=npu_free.float(), first_arrival=zero32, window=b.w32, n_frames=W)
-                picks = _backtrack_slots(parents, actions, u)
-                gate = active[:, None] & (picks >= 0)  # only picked frames execute; rest SKIP
-                free_end, acc_sum, proc, miss, npu_s = _audit_scan(
-                    head=head, n_frames=b.n_frames, arrivals=b.arrivals, deadline=b.deadline,
-                    t_npu64=b.t_npu64, acc_stat=b.acc_stat, picks=picks, gate=gate,
-                    free0=npu_free.clamp_min(0.0), acc_sum=acc_sum, proc=proc, miss=miss, npu_s=npu_s,
-                    strict=strict)
-                head = torch.where(active, head + b.n_active, head)  # horizon is always n
-                busy = torch.where(active, t0 + free_end, busy)
-                rounds = rounds + active.long()
-                return head, busy, acc_sum, npu_s, proc, miss, rounds
-
-            return step, lambda: _init_state(b, 3, 2)
-
-        state, record = run.drive(
-            key, dict(gamma=c.gamma, deadline=c.deadline, n_active=c.n_active, n_frames=c.n_frames,
-                      g32=c.gamma.astype(np.float32), d32=c.deadline.astype(np.float32),
-                      a32=alpha.astype(np.float32), w32=window.astype(np.float32), arrivals=c.arrivals,
-                      acc_stat=c.acc_stat64),
-            dict(t_npu64=c.t_npu64, t_npu32=c.t_npu64.astype(np.float32), acc32=c.acc_dp32), build,
-            statics=(strict,))
+        state, record = run.drive(key, _jax_utility_inputs(c, group), _jax_utility_shared(c), build,
+                                  statics=(strict,))
         _, _, acc_sum, npu_s, proc, miss, rounds = state
         out = run.read(record, acc_sum, proc, miss, rounds, npu_s)
         return _collect(c, out, time.perf_counter() - t_start)
@@ -611,6 +634,52 @@ class _Plan(NamedTuple):
     ovf: torch.Tensor | None = None
 
 
+def _accuracy_choice(net: _Net, W: int, *, gamma, deadline, grid_t, n_active, start_bin, t_up, rtt, local, offload):
+    """Max-Accuracy's candidate selection for [B] lanes, from the upload
+    times [B, R] and round trip [B] the planner believes and the prefix
+    records ``(maxH, argb, alive)`` [B, W] of its two DP instances: ``local``
+    (first arrival 0) and ``offload`` (the frames buffered behind a head
+    offload).  Returns ``(use_off, use_loc, r_star, j_srv, nn, horizon,
+    b0_loc, b0_off)``: the choice, the offload's resolution and server
+    model, the NPU frame count, the frames consumed, and each DP's
+    backtrack start bin."""
+    mh0, ab0, alive0 = local
+    mh1, ab1, alive1 = offload
+    neg = torch.full((), NEG, dtype=torch.float64, device=t_up.device)
+    ks = torch.arange(W, device=t_up.device)
+    j_best, a_best, r_ok = net.best_server(t_up, deadline, rtt)
+    n_l = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None])
+    n_l = n_l.clamp(0, W).long()  # [B, R]
+    # The reference sizes each DP instance at ceil(horizon/grid)+2 bins and
+    # declares start_bin >= nbins infeasible; rebuild that per-candidate
+    # bound from the shared prefix records.
+    nlm1 = (n_l - 1).clamp(0, W - 1)
+    nb1 = torch.ceil(((gamma[:, None] + _no_fma((n_l.double() - 1.0) * gamma[:, None]))
+                      + deadline[:, None]) / grid_t[:, None]).long() + 2
+    dp_ok = torch.where(n_l == 0, True, alive1.gather(1, nlm1) & (start_bin[:, None] < nb1))
+    dp_tot = torch.where(n_l == 0, 0.0, mh1.gather(1, nlm1))
+    feas = r_ok & dp_ok
+    norm = torch.where(feas, (a_best + dp_tot) / (n_l + 1).double(), neg)
+    r_star = torch.argmax(norm, dim=1)  # first max = lowest r
+    off_exists = _pick(feas, r_star)
+    off_norm = _pick(norm, r_star)
+    # local_window_plan tries nn = n..1 and keeps the first feasible;
+    # aliveness is prefix-monotone, so that is the leading-alive count (and
+    # the start_bin bound only loosens as nn grows).
+    A = (alive0 & (ks < n_active[:, None])).sum(dim=1)
+    nb0 = torch.ceil((_no_fma((A.double() - 1.0) * gamma) + deadline) / grid_t).long() + 2
+    loc_exists = (A >= 1) & (start_bin < nb0)
+    a_last = (A - 1).clamp(0, W - 1)
+    loc_norm = torch.where(loc_exists, _pick(mh0, a_last) / A.double(), neg)
+    use_loc = loc_exists & (loc_norm > torch.where(off_exists, off_norm, neg))
+    use_off = off_exists & ~use_loc
+    n_off = _pick(n_l, r_star)
+    nn = torch.where(use_off, n_off, torch.where(use_loc, A, 0))
+    horizon = torch.where(use_off, n_off + 1, torch.where(use_loc, A, 1))
+    return (use_off, use_loc, r_star, _pick(j_best, r_star), nn, horizon, _pick(ab0, a_last),
+            _pick(ab1, _pick(nlm1, r_star)))
+
+
 def _accuracy_planner(b, W: int, NBINS: int):
     """Max-Accuracy's planning phase over a program's buffers:
     ``plan(npu_free, t_up, rtt) -> _Plan`` from the upload times [B, R] and
@@ -618,64 +687,33 @@ def _accuracy_planner(b, W: int, NBINS: int):
     the sweep engine, the estimator's belief in the online engine)."""
     B = b.B
     net = _Net(b)
-    ks = torch.arange(W, device=b.device)
     lanes = torch.arange(B, device=b.device)
-    neg = torch.full((), NEG, dtype=torch.float64, device=b.device)
 
     def plan(npu_free, t_up, rtt):
-        gamma, deadline, grid_t = b.gamma, b.deadline, b.grid
-        start_bin = torch.ceil(npu_free.clamp_min(0.0) / grid_t).long()
-        j_best, a_best, r_ok = net.best_server(t_up, deadline, rtt)
-        n_l = torch.floor(torch.where(r_ok, t_up, 0.0) / gamma[:, None])
-        n_l = n_l.clamp(0, W).long()  # [B, R]
+        start_bin = torch.ceil(npu_free.clamp_min(0.0) / b.grid).long()
         # Both DP instances as one over 2B lanes: local first, offload second.
         cho, par, mh, ab, alive = _accuracy_dp64(
             torch.cat([b.dur, b.dur]), b.acc_dp, torch.cat([b.arr0, b.arr1]), torch.cat([b.dl0, b.dl1]),
             _lanes2(start_bin), nbins=NBINS)
-        mh0, mh1 = mh[:B], mh[B:]
-        # The reference sizes each DP instance at ceil(horizon/grid)+2 bins
-        # and declares start_bin >= nbins infeasible; rebuild that
-        # per-candidate bound from the shared prefix records.
-        nlm1 = (n_l - 1).clamp(0, W - 1)
-        nb1 = torch.ceil(((gamma[:, None] + _no_fma((n_l.double() - 1.0) * gamma[:, None]))
-                          + deadline[:, None]) / grid_t[:, None]).long() + 2
-        dp_ok = torch.where(n_l == 0, True, alive[B:].gather(1, nlm1) & (start_bin[:, None] < nb1))
-        dp_tot = torch.where(n_l == 0, 0.0, mh1.gather(1, nlm1))
-        feas = r_ok & dp_ok
-        norm = torch.where(feas, (a_best + dp_tot) / (n_l + 1).double(), neg)
-        r_star = torch.argmax(norm, dim=1)  # first max = lowest r
-        off_exists = _pick(feas, r_star)
-        off_norm = _pick(norm, r_star)
-        # local_window_plan tries nn = n..1 and keeps the first feasible;
-        # aliveness is prefix-monotone, so that is the leading-alive count
-        # (and the start_bin bound only loosens as nn grows).
-        A = (alive[:B] & (ks < b.n_active[:, None])).sum(dim=1)
-        nb0 = torch.ceil((_no_fma((A.double() - 1.0) * gamma) + deadline) / grid_t).long() + 2
-        loc_exists = (A >= 1) & (start_bin < nb0)
-        a_last = (A - 1).clamp(0, W - 1)
-        loc_norm = torch.where(loc_exists, _pick(mh0, a_last) / A.double(), neg)
-        use_loc = loc_exists & (loc_norm > torch.where(off_exists, off_norm, neg))
-        use_off = off_exists & ~use_loc
-        n_off = _pick(n_l, r_star)
-        nn = torch.where(use_off, n_off, torch.where(use_loc, A, 0))
+        use_off, use_loc, r_star, j_srv, nn, horizon, b0_loc, b0_off = _accuracy_choice(
+            net, W, gamma=b.gamma, deadline=b.deadline, grid_t=b.grid, n_active=b.n_active, start_bin=start_bin,
+            t_up=t_up, rtt=rtt, local=(mh[:B], ab[:B], alive[:B]), offload=(mh[B:], ab[B:], alive[B:]))
         # Backtrack both DPs at once: the local lanes from their last alive
         # frame, the offload lanes from frame n_l(r*) - 1.
-        b0 = torch.cat([_pick(ab[:B], a_last), _pick(ab[B:], _pick(nlm1, r_star))])
         upto = torch.cat([torch.where(use_loc, nn, 0), torch.where(use_off, nn, 0)])
-        picks2 = _backtrack_bins(cho, par, b0, upto)
+        picks2 = _backtrack_bins(cho, par, torch.cat([b0_loc, b0_off]), upto)
         picks = torch.where(use_off[:, None], picks2[B:], picks2[:B])
-        j_srv = _pick(j_best, r_star)
         return _Plan(use_off, use_loc, r_star, j_srv, _pick(t_up, r_star), net.acc_sv[lanes, j_srv, r_star],
-                     picks, nn, torch.where(use_off, n_off + 1, torch.where(use_loc, A, 1)))
+                     picks, nn, horizon)
 
     return plan
 
 
-def _accuracy_inputs(models, c: _Common, group) -> tuple[dict, int]:
-    """Max-Accuracy's per-lane inputs beyond the network model, and the
-    group's bin count.  Bin arithmetic in f64 on the host — the same numpy
-    expressions as ``max_accuracy.local_dp``, for both first_arrival values
-    (0: the pure local window; gamma: the frames buffered behind an
+def _accuracy_bins(c: _Common, group, q: int = 128) -> tuple[dict, int]:
+    """Max-Accuracy's bin inputs per lane and the group's bin count (padded
+    to a multiple of ``q``).  Bin arithmetic in f64 on the host — the same
+    numpy expressions as ``max_accuracy.local_dp``, for both first_arrival
+    values (0: the pure local window; gamma: the frames buffered behind an
     offload)."""
     grid = np.array([float(s.params["grid"]) for s in group], np.float64)
     arr0 = np.ceil(c.arrivals / grid[:, None]).astype(np.int32)
@@ -684,12 +722,18 @@ def _accuracy_inputs(models, c: _Common, group) -> tuple[dict, int]:
     arr1 = np.ceil(arrivals1 / grid[:, None]).astype(np.int32)
     dl1 = np.floor((arrivals1 + c.deadline[:, None]) / grid[:, None]).astype(np.int32)
     horizon_t = c.gamma + (c.n_active.astype(np.float64) - 1.0) * c.gamma + c.deadline
-    NBINS = quant_bins(int((np.ceil(horizon_t / grid) + 2).max()))
+    NBINS = quant_bins(int((np.ceil(horizon_t / grid) + 2).max()), q=q)
     with np.errstate(invalid="ignore"):
         dur_f = np.ceil(c.t_npu64[None, :] / grid[:, None])
     dur = np.where(np.isfinite(dur_f), np.minimum(dur_f, NBINS), NBINS).astype(np.int32)
-    return dict(_base_lanes(c), grid=grid, arr0=arr0, dl0=dl0, arr1=arr1, dl1=dl1, dur=dur,
-                **_net_lanes(models, group)), NBINS
+    return dict(grid=grid, arr0=arr0, dl0=dl0, arr1=arr1, dl1=dl1, dur=dur), NBINS
+
+
+def _accuracy_inputs(models, c: _Common, group) -> tuple[dict, int]:
+    """Max-Accuracy's per-lane inputs beyond the network model, and the
+    group's bin count."""
+    bins, NBINS = _accuracy_bins(c, group)
+    return dict(_base_lanes(c), **bins, **_net_lanes(models, group)), NBINS
 
 
 def _base_lanes(c: _Common) -> dict[str, np.ndarray]:

@@ -75,15 +75,24 @@ class LaneProgram:
     and returns the new state; ``init()`` makes a fresh round-loop state
     from the buffers, whose first entry is ``head`` (a lane is done when
     ``head >= b.n_frames``).  Neither may read a buffer's values on the
-    host: a captured round never waits for the device."""
+    host: a captured round never waits for the device.
+
+    A round whose data-dependent inner loop runs a fixed number of masked
+    iterations returns ``(step, init, drain)`` instead: the state's last
+    entry is then a [B] bool, set where a lane's loop has iterations left,
+    and ``drain(state)`` runs only that loop's next fixed number of
+    iterations.  Both are captured, as two graphs on one state."""
 
     def __init__(self, key: tuple, device: torch.device, B: int, buffers: Mapping[str, np.ndarray],
-                 build: Callable[[SimpleNamespace], tuple[Callable, Callable]]):
+                 build: Callable[[SimpleNamespace], tuple[Callable, ...]]):
         self.key = key
         self.device = device
         self.buffers = {k: torch.from_numpy(a).to(device) for k, a in buffers.items()}
-        self.step, self.init = build(SimpleNamespace(B=B, device=device, **self.buffers))
+        built = build(SimpleNamespace(B=B, device=device, **self.buffers))
+        self.step, self.init = built[:2]
+        self.drain_step: Callable | None = built[2] if len(built) > 2 else None
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.drain_graph: torch.cuda.CUDAGraph | None = None
         self.static: tuple | None = None  # the state a captured round updates in place
 
     def load(self, buffers: Mapping[str, np.ndarray]) -> None:
@@ -111,6 +120,13 @@ class LaneProgram:
         self.graph.replay()
         return state
 
+    def drain(self, state: tuple) -> tuple:
+        """The inner loop's next iterations for every lane."""
+        if self.drain_graph is None:
+            return self.drain_step(state)
+        self.drain_graph.replay()
+        return state
+
     def _issue(self, state: tuple) -> tuple:
         return self.step(state)
 
@@ -122,16 +138,22 @@ class LaneProgram:
         fixed by the key, and a round never reads from the device, so the
         captured round is the round."""
         static = tuple(t.clone() for t in state)
+        steps = [self._issue] + ([self.drain_step] if self.drain_step is not None else [])
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm-up off the capture (library handles, allocator)
-            self._issue(static)
+            for step in steps:
+                step(static)
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for dst, src in zip(static, self._issue(static)):
-                dst.copy_(src)
-        self.graph, self.static = graph, static
+        graphs = []
+        for step in steps:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for dst, src in zip(static, step(static)):
+                    dst.copy_(src)
+            graphs.append(graph)
+        self.graph, self.static = graphs[0], static
+        self.drain_graph = graphs[1] if len(graphs) > 1 else None
         note("captures")
 
 
@@ -186,12 +208,25 @@ def run_sharded(prog: LaneProgram, record: dict) -> tuple:
     """Run ``prog``'s rounds on its one device until no lane is active, and
     return the final state (padded lanes included).  The test after each
     round is that round's one read from the device; ``record`` counts the
-    rounds and the reads."""
+    rounds and the reads.  A program with a drain step reads its lanes'
+    "iterations left" flag in the same copy, and replays the drain while
+    any lane has some: each replay, and its read of the flag, is counted
+    in ``record["drain_replays"]``."""
     state = prog.start()
     n_frames = prog.buffers["n_frames"]
+    if prog.drain_step is not None:
+        record.setdefault("drain_replays", 0)
     while True:
         state = prog.round(state)
         record["rounds"] += 1
         record["host_reads"] += 1
-        if not bool((state[0] < n_frames).any()):
+        if prog.drain_step is None:
+            active, left = bool((state[0] < n_frames).any()), False
+        else:
+            active, left = torch.stack([(state[0] < n_frames).any(), state[-1].any()]).tolist()
+        while left:
+            state = prog.drain(state)
+            record["drain_replays"] += 1
+            left = bool(state[-1].any())
+        if not active:
             return state

@@ -14,15 +14,13 @@ reference's schema, so one spec file runs in either package.
     run_serving  real models on the card behind the controller (launch/serve)
     run_sweep    a whole (bandwidth x deadline x fps x policy-param) grid in
                  one call — lane-batched on the device for ``batched=True``
-                 policies (core/sim_batch) and, with ``mode="online"``, for
-                 ``batched_online=True`` policies (core/sim_online_batch);
-                 the per-point loop otherwise
+                 policies (core/sim_batch), fleet grids of
+                 ``batched_multi=True`` policies (core/sim_multi_batch) and,
+                 with ``mode="online"``, ``batched_online=True`` policies
+                 (core/sim_online_batch); the per-point loop otherwise
 
 Policies that plan with tensor ops (``jax_accuracy``, ``jax_utility``) and
-the batched sweep engines run on the Session's device.  Fleet sweeps the
-reference runs on its fleet engine (``sim_multi_batch``) are not ported
-yet: those raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+the batched sweep engines run on the Session's device.
 
     from repro_torch.core.registry import PolicySpec
     from repro_torch.session import ScenarioSpec, Session
@@ -51,7 +49,7 @@ from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 
-from .core import sim_batch, sim_online_batch
+from .core import sim_batch, sim_multi_batch, sim_online_batch
 from .core.audit import AUDIT_TOL, apply_round, audit_round
 from .core.compile_cache import default_cache_dir, enable_compile_cache
 from .core.controller import BandwidthEstimator, OnlineController
@@ -693,17 +691,6 @@ class SweepReport:
 # Session facade
 # ---------------------------------------------------------------------------
 
-# The reference's sweep engines this package does not have yet.  run_sweep
-# refuses them by name instead of running them another way.
-_NOT_PORTED = {
-    "sim_multi_batch": (
-        "the batched fleet sweep engine (core/sim_multi_batch) is not ported to "
-        "repro_torch yet; see ROADMAP.md, 'Modules to port', item 6; "
-        "backend='reference' runs the grid point by point"
-    ),
-}
-
-
 class Session:
     """Routes one :class:`ScenarioSpec` to an execution engine on ``device``
     (``"cuda"`` by default; asking for the card where there is none raises)."""
@@ -870,14 +857,14 @@ class Session:
         Backend routing is the reference's: single-stream grids of policies
         registered ``batched=True`` run lane-batched on the Session's device
         (``core/sim_batch``; the network-aware planners replay constant and
-        piecewise traces there); anything else runs the per-point engines
+        piecewise traces there), and grids with a fleet at every point of
+        policies registered ``batched_multi=True`` on the fleet engine
+        (``core/sim_multi_batch``: the interacting clients' shared uplink
+        and edge server); anything else runs the per-point engines
         (``run_sim``, or ``run_multi`` when the point has a fleet).
         Requesting ``backend="batched"`` for a policy/grid combination
         without a batched engine logs a warning and falls back to the
-        per-point loop, recorded in ``meta["fallback"]``.  Fleet grids the
-        reference runs on its fleet engine (``batched_multi`` policies)
-        raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-        it, unless ``backend="reference"``.
+        per-point loop, recorded in ``meta["fallback"]``.
 
         ``chunk_size`` plans the grid as a lazy iterator of chunks instead
         of materializing every spec upfront.  Chunking is result-invariant
@@ -958,20 +945,23 @@ class Session:
                 if use_batched and not capable:
                     _LOG.warning(
                         "%s; run_sweep falling back to the reference loop "
-                        "(batched policies: %s; batched online policies: %s)", why,
-                        sim_batch.batched_policies(), sim_online_batch.batched_online_policies(),
+                        "(batched policies: %s; batched fleet policies: %s; "
+                        "batched online policies: %s)", why,
+                        sim_batch.batched_policies(), sim_multi_batch.multi_batched_policies(),
+                        sim_online_batch.batched_online_policies(),
                     )
                     meta["fallback"] = why
                     use_batched = False
                 if use_batched:
                     if mode == "online":
                         meta["engine"] = "sim_online_batch"
-                    elif any(s.fleet is not None for s in specs):
-                        raise NotImplementedError(_NOT_PORTED["sim_multi_batch"])
                     else:
-                        meta["engine"] = "sim_batch"
-            if use_batched and mode == "online":
+                        meta["engine"] = ("sim_multi_batch" if any(s.fleet is not None for s in specs)
+                                          else "sim_batch")
+            if use_batched and meta["engine"] == "sim_online_batch":
                 points = self._sweep_batched_online(specs, pts, groups)
+            elif use_batched and meta["engine"] == "sim_multi_batch":
+                points = self._sweep_batched_multi(specs, pts, groups)
             elif use_batched:
                 points = self._sweep_batched(specs, pts, groups)
             else:
@@ -1013,7 +1003,9 @@ class Session:
 
         Single-stream grids need ``batched=True`` (``sim_batch``; the trace
         kind never gates routing).  Fleet grids need ``batched_multi=True``
-        and a fleet at every grid point; online sweeps need
+        (every such policy has a fleet planner in ``sim_multi_batch``) and a
+        fleet at every grid point (the engines do not mix fleet and
+        single-stream lanes in one program); online sweeps need
         ``batched_online=True``."""
         if mode == "online":
             if entry.batched_online:
@@ -1093,6 +1085,42 @@ class Session:
             for spec, pt, (st, lane_meta) in zip(specs, pts, results)
         ]
 
+    def _sweep_batched_multi(
+        self, specs: list[ScenarioSpec], pts: list[dict[str, Any]], groups: list[dict[str, Any]]
+    ) -> list[SweepPoint]:
+        """A fleet grid through the lane-batched fleet engine: every point's
+        interacting fleet (shared uplink + server queue) runs on the device;
+        per-point meta is what ``run_multi`` reports."""
+        base = self.spec
+        scens = [
+            sim_multi_batch.FleetScenario(
+                stream=s.stream,
+                n_frames=s.n_frames,
+                bw_segments=s.trace.segments(),
+                rtt=s.trace.rtt_s,
+                n_clients=s.fleet.n_clients,
+                allocation=s.fleet.allocation,
+                capacity=s.fleet.capacity,
+                backlog_limit=s.fleet.backlog_limit,
+                weights=s.fleet.weights,
+                priorities=s.fleet.priorities,
+                params=s.policy.params,
+                workload=s.workload,
+            )
+            for s in specs
+        ]
+        results = sim_multi_batch.simulate_multi_batch(
+            base.policy.name, list(base.models), scens, strict=base.strict, device=self.device,
+            groups=groups,
+        )
+        return [
+            SweepPoint(overrides=dict(pt), streams=ms.per_client,
+                       meta={"policy": spec.policy.name, "allocation": spec.fleet.allocation,
+                             "server_jobs": ms.server_jobs, "server_utilization": ms.server_utilization,
+                             **sched_meta})
+            for spec, pt, (ms, sched_meta) in zip(specs, pts, results)
+        ]
+
     # -- mode: real models behind the controller ---------------------------
     def run_serving(self) -> RunReport:
         """Stand up the real-model serving stack (launch/serve) for this
@@ -1119,9 +1147,9 @@ class Session:
 # ---------------------------------------------------------------------------
 # CLI:  python -m repro_torch.session spec.json [--mode sim|multi|online|serving]
 #       python -m repro_torch.session sweep spec.json --grid grid.json
-# Malformed specs/grids (bad JSON, unknown policy, invalid parameters) and
-# what is not ported exit 2 with a one-line ``error: ...`` on stderr — never
-# a traceback.
+# Malformed specs/grids (bad JSON, unknown policy, invalid parameters) and a
+# missing card exit 2 with a one-line ``error: ...`` on stderr — never a
+# traceback.
 # ---------------------------------------------------------------------------
 
 _EXAMPLE = ScenarioSpec(
@@ -1193,7 +1221,7 @@ def _sweep_main(argv: Sequence[str]) -> int:
         if args.out:
             with open(args.out, "w") as fh:
                 fh.write(payload + "\n")
-    except (OSError, TypeError, ValueError, NotImplementedError) as exc:
+    except (OSError, TypeError, ValueError) as exc:
         return _fail(exc)
     if args.out:
         print(

@@ -27,6 +27,9 @@ Tolerances and why:
     per-lane device tensors, every product rounds before its add);
   * the lane-batched online engine (``core/sim_online_batch``) likewise, at
     100 points of the adaptivity grid: exact, ``estimated_bps`` included;
+  * the lane-batched fleet engine (``core/sim_multi_batch``) likewise, for
+    the seven batched_multi policies at 54 points of chip_smoke's fleet
+    grid: exact, the scheduler's counters and the server's included;
   * a cached lane program (``core/sweep_shard``) replayed for a new group
     against the same group run with an empty cache: exact.
 """
@@ -42,6 +45,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
 from chip_smoke import (  # noqa: E402
     ADAPT_GRID,
+    FLEET_BASE,
+    FLEET_PARAMS,
+    FLEET_SMALL_GRID,
     ONLINE_PARAMS,
     FLASH_SHAPES,
     FLASH_TOL,
@@ -50,6 +56,8 @@ from chip_smoke import (  # noqa: E402
     SWEEP_PARAMS,
     at_offset,
     batch_scenarios,
+    fleet_scenarios,
+    fleet_spec,
     full_grids,
     online_spec,
     own_fan_in,
@@ -58,7 +66,7 @@ from chip_smoke import (  # noqa: E402
 
 from repro_torch import arch as A
 from repro_torch import configs, core, quant, scenariogen, session
-from repro_torch.core import compile_cache, jax_sched, profiles, sim_batch, sim_online_batch, sweep_shard
+from repro_torch.core import compile_cache, jax_sched, profiles, sim_batch, sim_multi_batch, sim_online_batch, sweep_shard
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
@@ -407,3 +415,38 @@ def test_online_graph_a_then_b_equals_b_alone(cuda_device, name, monkeypatch):
     alone = sim_online_batch.simulate_online_batch(name, models, scens[8:16], device=cuda_device)
     assert stats_rows(st for st, _ in after_a) == stats_rows(st for st, _ in alone)
     assert [m for _, m in after_a] == [m for _, m in alone]
+
+
+def _fleet_scenarios(name: str, n_frames: int = 30):
+    """54 points of chip_smoke's 216-point fleet grid (every 4th), over
+    ``n_frames``."""
+    base = session.ScenarioSpec.from_json(fleet_spec(name, n_frames, **FLEET_BASE))
+    return list(base.models), fleet_scenarios(core, session, base, session.SweepGrid.from_json(FLEET_SMALL_GRID), 4)
+
+
+def _fleet_rows(results) -> list:
+    return [(stats_rows(ms.per_client), ms.server_jobs, ms.server_busy_s, meta) for ms, meta in results]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLEET_PARAMS))
+def test_fleet_engine_on_card_equals_cpu(cuda_device, name):
+    models, scens = _fleet_scenarios(name)
+    assert len(scens) == 54
+    card = sim_multi_batch.simulate_multi_batch(name, models, scens, device=cuda_device)
+    cpu = sim_multi_batch.simulate_multi_batch(name, models, scens, device="cpu")
+    assert _fleet_rows(card) == _fleet_rows(cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["offload", "max_accuracy", "track_accuracy"])
+def test_fleet_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
+    """A fleet round, with its masked drain events, never synchronizes with
+    the host; each group reads once a round plus once for its results, and
+    its drain replays apart."""
+    issued = _sync_checked(monkeypatch)
+    models, scens = _fleet_scenarios(name, n_frames=12)
+    groups = []
+    sim_multi_batch.simulate_multi_batch(name, models, scens[:20], device=cuda_device, groups=groups)
+    assert len(issued) == 2 * len(groups)
+    assert all(g["host_reads"] == g["rounds"] + 1 and g["drain_replays"] >= 0 for g in groups)

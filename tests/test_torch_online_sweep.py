@@ -119,9 +119,11 @@ def test_online_sweep_rejects_fleet_and_track_grids():
     track = tsession.ScenarioSpec.from_json({**_spec("track_fixed", {"k": 3}), "workload": {"kind": "track"}})
     with pytest.raises(ValueError, match="tracking workload"):
         tsession.Session(track, device=CPU).run_sweep(tsession.SweepGrid(), mode="online")
-    # an oracle fleet sweep of a batched_multi policy still names its ROADMAP.md item
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*item 6"):
-        tsession.Session(fleet, device=CPU).run_sweep(tsession.SweepGrid(n_clients=(1, 2)))
+    # a fleet axis with mode="online" too; without it the grid runs on the fleet engine
+    with pytest.raises(ValueError, match="single-stream"):
+        tsession.Session(fleet, device=CPU).run_sweep(tsession.SweepGrid(n_clients=(1, 2)), mode="online")
+    report = tsession.Session(fleet, device=CPU).run_sweep(tsession.SweepGrid(n_clients=(1, 2)))
+    assert report.backend == "batched" and report.meta["engine"] == "sim_multi_batch"
 
 
 def test_cli_online_sweep_equals_reference(tmp_path, capsys):

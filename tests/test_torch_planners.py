@@ -151,27 +151,35 @@ def test_registry_validation_matches_reference():
     assert tregistry.available_policies() == jregistry.available_policies()
 
 
-# run_sweep per mode: with the compile cache (item 8), a fleet grid (item 6,
-# still refused) and an online grid (item 7), and the engine each runs on.
+# run_sweep per mode: with the compile cache, a fleet grid and an online
+# grid, and the engine each runs on.
 _SWEEP_REFUSALS = {
     "sim": ({}, {"compile_cache": "cache"}, "sim_batch"),
-    "multi": ({"n_clients": (1, 2)}, {}, "item 6"),
+    "multi": ({"n_clients": (1, 2)}, {}, "sim_multi_batch"),
     "online": ({"deadline_ms": (150.0,)}, {"mode": "online"}, "sim_online_batch"),
 }
 
 
 @pytest.mark.parametrize("mode", ["sim", "multi", "online"])
 def test_unported_session_modes_name_the_roadmap(mode):
-    """Every mode runs; ``run_sweep`` runs single-stream and online grids
-    lane-batched (the compile cache accepted), and refuses the reference's
-    fleet sweep engine, naming the ROADMAP.md item that ports it."""
+    """Every mode runs, and ``run_sweep`` runs single-stream, fleet and
+    online grids lane-batched (the compile cache accepted); the fleet grid
+    gives the reference's per-point results."""
     spec = tsession.ScenarioSpec(policy="max_accuracy", n_frames=12)
     report = tsession.Session(spec, device="cpu").run(mode)
     assert report.mode == mode and report.stats.frames_total == 12
     axes, kw, want = _SWEEP_REFUSALS[mode]
-    if want.startswith("item"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{want}"):
-            tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)
-        return
     sweep = tsession.Session(spec, device="cpu").run_sweep(tsession.SweepGrid(**axes), **kw)
-    assert sweep.backend == "batched" and sweep.meta["engine"] == want and len(sweep) == 1
+    assert sweep.backend == "batched" and sweep.meta["engine"] == want and len(sweep) == len(tsession.SweepGrid(**axes))
+    if mode == "multi":  # the reference's event loop, equal weights: bit-equal
+        ref = jsession.Session(jsession.ScenarioSpec(policy="max_accuracy", n_frames=12)).run_sweep(
+            jsession.SweepGrid(**axes), backend="reference")
+        assert _fleet_rows(sweep) == _fleet_rows(ref)
+
+
+def _fleet_rows(report) -> list:
+    """Per point: each client's audited stats, then the server's and the
+    scheduler's counters."""
+    return [[(s.frames_total, s.frames_processed, s.frames_missed_deadline, s.frames_offloaded, s.schedule_calls,
+              s.accuracy_sum) for s in p.streams] + [p.meta[k] for k in ("server_jobs", "grants", "denials")]
+            for p in report.points]

@@ -100,13 +100,26 @@ def test_cli_malformed_spec_exits_2_with_one_line(payload, tmp_path, capsys):
 
 
 def test_cli_refuses_sweep_and_a_missing_card(tmp_path, capsys, monkeypatch):
-    """A fleet grid the reference runs on its fleet engine is refused with
-    its ROADMAP.md item; a missing card is refused by both subcommands."""
+    """A fleet grid runs on the fleet engine from the CLI with the
+    reference's per-point results; a missing card is refused by both
+    subcommands."""
     path, grid = tmp_path / "spec.json", tmp_path / "grid.json"
     path.write_text(json.dumps(SPECS[3]))
     grid.write_text(json.dumps({"allocation": ["priority", "fifo"]}))
     rc, out, err = _cli(tsession, ["sweep", str(path), "--grid", str(grid), "--device", "cpu"], capsys)
-    assert rc == 2 and out == "" and err.count("\n") == 1 and "ROADMAP.md" in err and "item 6" in err
+    assert rc == 0 and err == ""
+    got = json.loads(out)
+    assert got["backend"] == "batched" and got["meta"]["engine"] == "sim_multi_batch"
+    ref = jsession.Session(jsession.ScenarioSpec.from_json(SPECS[3])).run_sweep(
+        jsession.SweepGrid.from_json(grid.read_text()), backend="reference")
+    assert len(got["points"]) == len(ref.points) == 2
+    for p, r in zip(got["points"], ref.points):
+        assert [{k: s[k] for k in ("frames_processed", "frames_missed_deadline", "frames_offloaded",
+                                   "frames_total", "schedule_calls", "accuracy_sum")} for s in p["streams"]] == [
+            {k: getattr(s, k) for k in ("frames_processed", "frames_missed_deadline", "frames_offloaded",
+                                        "frames_total", "schedule_calls", "accuracy_sum")} for s in r.streams]
+        assert {k: p["meta"][k] for k in ("server_jobs", "grants", "denials")} == {
+            k: r.meta[k] for k in ("server_jobs", "grants", "denials")}
     path.write_text(json.dumps(SPECS[0]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out, err = _cli(tsession, ["sweep", str(path), "--grid", str(grid)], capsys)

@@ -5,11 +5,11 @@ Routing and ``meta`` (engine, fallback, trace override, chunks, summary,
 points streamed) equal the reference's on the same grids; grids and
 reports written by either package load in the other; chunking and
 ``keep_points=False`` change no result; the CLI prints the reference's
-stats and refuses bad input with exit 2 and one ``error:`` line.  What the
-port does not have yet, the fleet sweep engine, raises
-``NotImplementedError`` naming its ROADMAP.md item; the online sweep engine
-and the compile cache run (tests/test_torch_online_sweep.py and
-tests/test_torch_compile_cache.py hold them to the reference).
+stats and refuses bad input with exit 2 and one ``error:`` line.  Fleet
+grids run on the fleet engine, online grids on the online engine, and the
+compile cache is accepted (tests/test_torch_fleet_*.py,
+tests/test_torch_online_sweep.py and tests/test_torch_compile_cache.py hold
+them to the reference).
 """
 from __future__ import annotations
 
@@ -140,14 +140,13 @@ def test_chunked_and_streamed_equal_unchunked(name, params):
 
 
 def test_not_ported_engines_name_their_roadmap_item(monkeypatch, tmp_path):
-    """Grids the reference runs on its fleet engine raise instead of running
-    another way; online grids run on the batched online engine, and the
-    compile cache (argument or environment) is accepted, recorded as the
-    port's in-process cache, and writes nothing."""
-    fleet = tsession.Session(tsession.ScenarioSpec.from_json(_spec("max_accuracy", fleet={"n_clients": 2})),
-                             device=CPU)
-    with pytest.raises(NotImplementedError, match=r"sim_multi_batch.*ROADMAP.md.*item 6"):
-        fleet.run_sweep(tsession.SweepGrid(n_clients=(1, 2)))
+    """Grids the reference runs on its fleet engine run on the port's, with
+    the reference's per-point results; online grids run on the batched
+    online engine, and the compile cache (argument or environment) is
+    accepted, recorded as the port's in-process cache, and writes nothing."""
+    got, ref = _both(_spec("max_accuracy", fleet={"n_clients": 2}), {"n_clients": [1, 2]})
+    assert got.backend == ref.backend == "batched" and got.meta["engine"] == ref.meta["engine"] == "sim_multi_batch"
+    assert _points(got) == _points(ref)  # equal weights: bit-equal
     online = tsession.Session(tsession.ScenarioSpec.from_json(_spec("max_utility", {"alpha": 200.0})), device=CPU)
     report = online.run_sweep(tsession.SweepGrid(deadline_ms=(150.0,)), mode="online")
     assert report.backend == "batched" and report.meta["engine"] == "sim_online_batch"
