@@ -15,7 +15,7 @@ from .models.common import param_count
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str  # resnet | squeezenet | vit
+    family: str  # resnet | effnet | squeezenet | vit | swin
     cfg: Any
 
 
@@ -23,21 +23,29 @@ def abstract_params(arch: Arch):
     """(params specs, state specs) for ``arch``."""
     if arch.family == "resnet":
         return convnets.resnet_abstract(arch.cfg)
+    if arch.family == "effnet":
+        return convnets.effnet_abstract(arch.cfg)
     if arch.family == "squeezenet":
         return convnets.squeezenet_abstract(arch.cfg)
     if arch.family == "vit":
         return vision.vit_abstract_params(arch.cfg), {}
-    raise ValueError(f"family {arch.family!r} is not ported (have resnet, squeezenet, vit)")
+    if arch.family == "swin":
+        return vision.swin_abstract_params(arch.cfg), {}
+    raise ValueError(f"family {arch.family!r} is not ported (have resnet, effnet, squeezenet, vit, swin)")
 
 
 def classifier_forward(arch: Arch, params, state, images, *, train: bool):
     """images [B, H, W, 3] -> (logits [B, n_classes] f32, new_state)."""
     if arch.family == "resnet":
         return convnets.resnet_forward(arch.cfg, params, state, images, train=train)
+    if arch.family == "effnet":
+        return convnets.effnet_forward(arch.cfg, params, state, images, train=train)
     if arch.family == "squeezenet":
         return convnets.squeezenet_forward(arch.cfg, params, state, images, train=train)
     if arch.family == "vit":
         return vision.vit_forward(arch.cfg, params, images), state
+    if arch.family == "swin":
+        return vision.swin_forward(arch.cfg, params, images), state
     raise ValueError(f"family {arch.family!r} is not a ported classifier family")
 
 

@@ -13,6 +13,8 @@ _MODULES = {
     "resnet-50": "resnet_50",
     "squeezenet": "squeezenet",
     "vit-s16": "vit_s16",
+    "efficientnet-b7": "efficientnet_b7",
+    "swin-b": "swin_b",
 }
 
 ALL = tuple(_MODULES)

@@ -1,7 +1,9 @@
 """Serving entry point: stand up NPU (int8 CUDA kernel) + edge (bf16) variants of a
 classifier pair, calibrate measured profiles, and run the FastVA controller
-over a synthetic video.  A ViT's variants both run their attention in the
-flash CUDA kernel.
+over a synthetic video.  Any classifier of ``repro_torch.configs`` serves by
+name (EfficientNet-B7's int8 variant runs 219 GEMMs of the int8 kernel a
+full-width forward).  A ViT's variants both run their attention in the
+flash CUDA kernel; a Swin's run no kernel, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --policy max_accuracy \
         --frames 200 --fps 30 --bandwidth 2.0

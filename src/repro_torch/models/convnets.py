@@ -1,4 +1,4 @@
-"""Convolutional classifiers: ResNet-50 and SqueezeNet.
+"""Convolutional classifiers: ResNet-50, EfficientNet and SqueezeNet.
 
 Layouts: images come in NHWC ``[B, H, W, 3]`` (the reference's public layout);
 activations run NCHW inside, and conv weights are OIHW.  Both forwards cast
@@ -13,10 +13,15 @@ axis) and loop over that axis in place of ``lax.scan``.
 Padding follows XLA's ``SAME`` rule, which is asymmetric under stride 2
 (the 7x7/2 stem on 224 pads 2 before and 3 after), so every conv and pool
 pads explicitly with ``F.pad`` and then runs unpadded.
+
+Under an active matmul backend every conv with ``groups == 1`` lowers to one
+GEMM (``_conv_via_matmul``); a depthwise conv stays a plain grouped conv in
+both variants, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,12 +50,13 @@ def _pad_same(x: torch.Tensor, kh: int, kw: int, stride: int, value: float = 0.0
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
-def conv(w: torch.Tensor, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """SAME conv of NCHW ``x`` with OIHW ``w`` (cast to x's dtype)."""
-    if current_matmul() is not None:
+def conv(w: torch.Tensor, x: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
+    """SAME conv of NCHW ``x`` with OIHW ``w`` (cast to x's dtype); a
+    depthwise conv has ``groups`` = channels and ``w`` [C, 1, KH, KW]."""
+    if current_matmul() is not None and groups == 1:
         return _conv_via_matmul(w, x, stride)
     kh, kw = w.shape[2:]
-    return F.conv2d(_pad_same(x, kh, kw, stride), w.to(x.dtype), stride=stride)
+    return F.conv2d(_pad_same(x, kh, kw, stride), w.to(x.dtype), stride=stride, groups=groups)
 
 
 def _conv_via_matmul(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -110,6 +116,11 @@ def batchnorm(p, s, x, train: bool, eps=1e-5):
 
 def maxpool(x, window=3, stride=2):
     return F.max_pool2d(_pad_same(x, window, window, stride, value=float("-inf")), window, stride)
+
+
+def _bias(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel bias as it adds to NCHW ``x``."""
+    return b.to(x.dtype)[:, None, None]
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +225,141 @@ def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = Fals
 
 
 # ---------------------------------------------------------------------------
+# EfficientNet (B0 base scaled by width/depth multipliers; B7 = 2.0 / 3.1)
+# ---------------------------------------------------------------------------
+
+EFFNET_B0_BLOCKS = (  # (expand, channels, repeats, stride, kernel)
+    (1, 16, 1, 1, 3),
+    (6, 24, 2, 2, 3),
+    (6, 40, 2, 2, 5),
+    (6, 80, 3, 2, 3),
+    (6, 112, 3, 1, 5),
+    (6, 192, 4, 2, 5),
+    (6, 320, 1, 1, 3),
+)
+
+
+def _round_filters(ch: float, mult: float, divisor: int = 8) -> int:
+    ch *= mult
+    new = max(divisor, int(ch + divisor / 2) // divisor * divisor)
+    if new < 0.9 * ch:
+        new += divisor
+    return int(new)
+
+
+@dataclasses.dataclass(frozen=True)
+class EfficientNetConfig:
+    name: str
+    width_mult: float = 1.0
+    depth_mult: float = 1.0
+    n_classes: int = 1000
+    se_ratio: float = 0.25
+
+    def stages(self):
+        """(expand, channels, repeats, stride, kernel) of each stage."""
+        return [
+            (expand, _round_filters(ch, self.width_mult), int(math.ceil(reps * self.depth_mult)), stride, k)
+            for expand, ch, reps, stride, k in EFFNET_B0_BLOCKS
+        ]
+
+    @property
+    def stem_ch(self) -> int:
+        return _round_filters(32, self.width_mult)
+
+    @property
+    def head_ch(self) -> int:
+        return _round_filters(1280, self.width_mult)
+
+
+def _mbconv_specs(cin, cout, expand, k, se_ratio):
+    cmid = cin * expand
+    s: dict = {}
+    if expand != 1:
+        s["expand"] = conv_spec(1, 1, cin, cmid)
+        s["bn_e"] = bn_specs(cmid)
+    s["dw"] = spec((cmid, 1, k, k), ("conv_out", None, None, None), init="conv")
+    s["bn_d"] = bn_specs(cmid)
+    cse = max(1, int(cin * se_ratio))  # from the block's input width, as in the reference
+    s["se_r"] = {"w": conv_spec(1, 1, cmid, cse), "b": spec((cse,), (None,), init="zeros")}
+    s["se_e"] = {"w": conv_spec(1, 1, cse, cmid), "b": spec((cmid,), (None,), init="zeros")}
+    s["project"] = conv_spec(1, 1, cmid, cout)
+    s["bn_p"] = bn_specs(cout)
+    return s
+
+
+def _mbconv_state(cin, cout, expand):
+    cmid = cin * expand
+    s: dict = {"bn_d": bn_state_specs(cmid), "bn_p": bn_state_specs(cout)}
+    if expand != 1:
+        s["bn_e"] = bn_state_specs(cmid)
+    return s
+
+
+def effnet_abstract(c: EfficientNetConfig) -> tuple[dict, dict]:
+    params: dict = {"stem": {"conv": conv_spec(3, 3, 3, c.stem_ch), "bn": bn_specs(c.stem_ch)}}
+    state: dict = {"stem": {"bn": bn_state_specs(c.stem_ch)}}
+    cin = c.stem_ch
+    for i, (expand, cout, reps, stride, k) in enumerate(c.stages()):
+        params[f"stage{i}_first"] = _mbconv_specs(cin, cout, expand, k, c.se_ratio)
+        state[f"stage{i}_first"] = _mbconv_state(cin, cout, expand)
+        if reps > 1:
+            params[f"stage{i}_rest"] = stack_specs(_mbconv_specs(cout, cout, expand, k, c.se_ratio), reps - 1)
+            state[f"stage{i}_rest"] = stack_specs(_mbconv_state(cout, cout, expand), reps - 1)
+        cin = cout
+    params["head_conv"] = {"conv": conv_spec(1, 1, cin, c.head_ch), "bn": bn_specs(c.head_ch)}
+    state["head_conv"] = {"bn": bn_state_specs(c.head_ch)}
+    params["head"] = {
+        "w": spec((c.head_ch, c.n_classes), ("embed", "vocab")),
+        "b": spec((c.n_classes,), ("vocab",), init="zeros"),
+    }
+    return params, state
+
+
+def _mbconv(p, s, x, stride, train):
+    """expand -> BN -> SiLU -> depthwise -> BN -> SiLU -> squeeze-excite ->
+    project -> BN, plus the input where stride is 1 and the widths match.
+    Each 1x1 SE conv acts on [B, C, 1, 1]: one M = B GEMM under a backend."""
+    ns: dict = {}
+    h = x
+    if "expand" in p:
+        h, ns["bn_e"] = batchnorm(p["bn_e"], s["bn_e"], conv(p["expand"], h), train)
+        h = F.silu(h)
+    h, ns["bn_d"] = batchnorm(p["bn_d"], s["bn_d"], conv(p["dw"], h, stride=stride, groups=h.shape[1]), train)
+    h = F.silu(h)
+    z = h.mean(dim=(2, 3), keepdim=True)  # squeeze-and-excitation
+    z = F.silu(conv(p["se_r"]["w"], z) + _bias(p["se_r"]["b"], z))
+    z = torch.sigmoid(conv(p["se_e"]["w"], z) + _bias(p["se_e"]["b"], z))
+    h = h * z
+    h, ns["bn_p"] = batchnorm(p["bn_p"], s["bn_p"], conv(p["project"], h), train)
+    if stride == 1 and x.shape[1] == h.shape[1]:
+        h = h + x
+    return h, ns
+
+
+def effnet_forward(c: EfficientNetConfig, params, state, images, *, train: bool = False):
+    x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+    ns: dict = {"stem": {}, "head_conv": {}}
+    x = conv(params["stem"]["conv"], x, stride=2)
+    x, ns["stem"]["bn"] = batchnorm(params["stem"]["bn"], state["stem"]["bn"], x, train)
+    x = F.silu(x)
+    for i, (_, _, reps, stride, _) in enumerate(c.stages()):
+        x, ns[f"stage{i}_first"] = _mbconv(params[f"stage{i}_first"], state[f"stage{i}_first"], x, stride, train)
+        if reps > 1:
+            rest_p, rest_s = params[f"stage{i}_rest"], state[f"stage{i}_rest"]
+            new_states = []
+            for layer in range(reps - 1):
+                x, s2 = _mbconv(index_tree(rest_p, layer), index_tree(rest_s, layer), x, 1, train)
+                new_states.append(s2)
+            ns[f"stage{i}_rest"] = _restack(new_states)
+        x = shard(x, "batch", None, None, None)
+    x = conv(params["head_conv"]["conv"], x)
+    x, ns["head_conv"]["bn"] = batchnorm(params["head_conv"]["bn"], state["head_conv"]["bn"], x, train)
+    h = F.silu(x).mean(dim=(2, 3))
+    logits = matmul(h, params["head"]["w"].to(h.dtype)) + params["head"]["b"].to(h.dtype)
+    return logits.to(torch.float32), ns
+
+
+# ---------------------------------------------------------------------------
 # SqueezeNet v1.1 (the paper's compact model)
 # ---------------------------------------------------------------------------
 
@@ -253,10 +399,6 @@ def squeezenet_abstract(c: SqueezeNetConfig) -> tuple[dict, dict]:
         "b": spec((c.n_classes,), (None,), init="zeros"),
     }
     return params, {}
-
-
-def _bias(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return b.to(x.dtype)[:, None, None]
 
 
 def _fire(p, x):

@@ -26,9 +26,11 @@ class QuantStats:
 
 def _out_axis(w: torch.Tensor, spec: ParamSpec) -> int:
     """Output-channel axis, decided by the leaf's spec: O of a conv weight
-    ``[..., O, I, KH, KW]`` (a leading axis stacks repeated blocks), and the
-    last axis of every other leaf, whatever its rank (ViT's stacked
-    ``wq [L, d, H, hd]`` is per-``hd``, as in the reference)."""
+    ``[..., O, I, KH, KW]`` (a leading axis stacks repeated blocks; a
+    depthwise ``[L, C, 1, k, k]`` is per C), and the last axis of every other
+    leaf, whatever its rank (ViT's stacked ``wq [L, d, H, hd]`` per ``hd``,
+    Swin's ``rel_bias [L, (2w-1)², heads]`` per head, a stacked BN scale or
+    SE bias ``[L, C]`` per C), as in the reference."""
     return w.dim() - 4 if spec.init == "conv" else w.dim() - 1
 
 

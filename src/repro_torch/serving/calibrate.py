@@ -9,6 +9,8 @@ paper-faithful fallback; this module measures the device the port runs on:
              a CPU device) — real quantized arithmetic, not a constant.  A
              ViT's matmuls are plain, as in the reference; its attention
              runs ``kernels/flash_attention``'s CUDA kernel in both variants.
+             A Swin's matmuls and window attention are plain too, so its
+             variants differ only in their weights and launch no kernel.
   t_server   median wall time of the full-precision "edge" variant.
   acc_*      top-1 accuracy on held-out ``make_synthetic_video`` frames;
              ``acc_server[r]`` is scored on frames degraded to offload
@@ -327,7 +329,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--models", nargs="*", default=None,
-                    help="subset of architectures (default: resnet-50 squeezenet)")
+                    help="classifiers of repro_torch.configs (default: resnet-50 squeezenet)")
     args = ap.parse_args(argv)
 
     cfg = CalibrationConfig.smoke(seed=args.seed) if args.smoke else CalibrationConfig(seed=args.seed)

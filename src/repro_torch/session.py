@@ -268,8 +268,12 @@ class ScenarioSpec:
     scheduled by which policy.  JSON round-trippable (``to_json``/``from_json``)
     so benchmark sweeps and CI smoke runs are reproducible artifacts.
 
-    ``models`` entries may be preset names (``"resnet-50"``/``"squeezenet"``)
-    or full :class:`ModelProfile` objects; they normalize to profiles.
+    ``models`` entries may be preset names (``"resnet-50"``/``"squeezenet"``),
+    payload dicts or full :class:`ModelProfile` objects; they normalize to
+    profiles.  ``run_serving`` reads only each model's name, which selects a
+    classifier of ``repro_torch.configs`` (``resnet-50``, ``squeezenet``,
+    ``vit-s16``, ``efficientnet-b7``, ``swin-b``): ``{"name": "swin-b"}``
+    serves Swin-B.
     ``fleet`` is only consulted by ``run_multi``; ``seed`` only by serving.
     ``workload`` selects the frame semantics (classification by default,
     detect+track with ``WorkloadSpec(kind="track")``) and must be one the

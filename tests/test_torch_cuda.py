@@ -45,6 +45,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
 from chip_smoke import (  # noqa: E402
     ADAPT_GRID,
+    B7,
     FLEET_BASE,
     FLEET_PARAMS,
     FLEET_SMALL_GRID,
@@ -61,7 +62,9 @@ from chip_smoke import (  # noqa: E402
     full_grids,
     online_spec,
     own_fan_in,
+    record_gemms,
     stats_rows,
+    ZOO_GEMMS,
 )
 
 from repro_torch import arch as A
@@ -70,6 +73,7 @@ from repro_torch.core import compile_cache, jax_sched, profiles, sim_batch, sim_
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
+from repro_torch.models import common
 from repro_torch.models.common import init_tree, matmul_backend
 
 SHAPES = GEMM_SHAPES  # tests/test_kernels.py's, then the split-K, narrow-load and large-M shapes
@@ -138,7 +142,22 @@ def test_kernel_rejects_non_contiguous(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,gemms", [("resnet-50", 10), ("squeezenet", 26)])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_b7_full_width_gemm_shapes_bitwise_equal_plain(cuda_device, batch):
+    """Every GEMM one full-width EfficientNet-B7 NPU forward issues at 224²
+    (219 of them: the stem's [B·112², 27] x [27, 64], the squeeze-excite
+    pairs at M = B with K and N down to 8, the head conv and the head),
+    bitwise against the plain version."""
+    shapes = record_gemms(torch, A, configs, common, B7, batch)
+    assert len(shapes) == ZOO_GEMMS[B7] == 219
+    assert shapes[0] == (batch * 112 * 112, 27, 64) and shapes[-1] == (batch, 2560, 1000)
+    for m, k, n in dict.fromkeys(shapes):
+        xq, wq, xs, ws = _quantized(cuda_device, m, k, n, seed=m + 7 * k + 13 * n)
+        assert torch.equal(ops.int8_matmul(xq, wq, xs, ws), ref.int8_matmul_ref(xq, wq, xs, ws)), (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,gemms", [("resnet-50", 10), ("squeezenet", 26), ("efficientnet-b7", 42), ("swin-b", 0)])
 def test_npu_forward_through_kernel_equals_plain_backend(cuda_device, name, gemms):
     arch = configs.get(name, smoke=True)
     specs, state_specs = A.abstract_params(arch)

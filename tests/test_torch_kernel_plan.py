@@ -19,8 +19,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
 from chip_smoke import FLASH_SHAPES, GEMM_SHAPES, MISALIGNED, at_offset  # noqa: E402
 
+from repro_torch import arch as A
+from repro_torch import configs
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.npu_matmul import ops, ref
+from repro_torch.models.common import matmul_backend, tree_map
 
 GRID = [  # (M, K, N): thin to tall M, ragged and long K, narrow to wide N
     (m, k, n) for m, k, n in itertools.product((1, 17, 49, 196, 257, 3136, 12544, 100352),
@@ -72,6 +75,46 @@ def test_plan_fits_workspace_over_the_grid():
         if splits > 1:
             assert tiles * splits * bm * ops.BN <= ops.WS_ELEMS and tiles <= ops.WS_TILES, (m, k, n)
             assert ops.k_per_split(k, splits) >= ops.MIN_SPLIT_STEPS or splits == 1, (m, k, n)
+
+
+def _b7_gemm_shapes(batch: int) -> list[tuple[int, int, int]]:
+    """(M, K, N) of every GEMM a full-width EfficientNet-B7 NPU forward issues
+    at 224², in call order, traced on the meta device (shapes, no compute)."""
+    arch = configs.get("efficientnet-b7")
+    specs, state_specs = A.abstract_params(arch)
+    params, state = (tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), t)
+                     for t in (specs, state_specs))
+    shapes = []
+    with matmul_backend(lambda x, w: (shapes.append((x.shape[0], x.shape[1], w.shape[1])), x @ w)[1]):
+        A.classifier_forward(arch, params, state, torch.empty(batch, 224, 224, 3, device="meta"), train=False)
+    return shapes
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_b7_gemm_shapes_take_valid_launches(batch):
+    """B7's 219 GEMMs, shapes ResNet-50 and SqueezeNet never gave the kernel
+    (squeeze-excite pairs at M = batch with K and N down to 8, K = 12 or 20
+    on the narrow path, the stem's K = 27, the head conv and head): every
+    plan fits the grid and the workspace, its splits cover K exactly once,
+    and each operand's loads are the widest its row stride allows."""
+    shapes = _b7_gemm_shapes(batch)
+    assert len(shapes) == 219
+    assert shapes[0] == (batch * 112 * 112, 27, 64)
+    assert shapes[-2:] == [(batch * 49, 640, 2560), (batch, 2560, 1000)]
+    for pair in [((batch, 32, 8), (batch, 8, 32)), ((batch, 288, 12), (batch, 12, 288)),
+                 ((batch, 3840, 160), (batch, 160, 3840))]:
+        assert all(s in shapes for s in pair), pair
+    base = 1 << 20
+    for m, k, n in dict.fromkeys(shapes):
+        bm, splits = ops.plan(m, n, k)
+        tiles = ops.cdiv(m, bm) * ops.cdiv(n, ops.BN)
+        assert bm in ops.ROW_TILES and 1 <= splits <= ops.MAX_SPLITS and ops.cdiv(m, bm) <= ops.MAX_GRID_Y
+        if splits > 1:
+            assert tiles * splits * bm * ops.BN <= ops.WS_ELEMS and tiles <= ops.WS_TILES, (m, k, n)
+        per = ops.k_per_split(k, splits)
+        assert (splits - 1) * per < ops.cdiv(k, ops.BK) <= splits * per, (m, k, n)
+        widths = ops.load_widths(k, n, base, base)
+        assert widths == tuple(next(w for w in (16, 4, 1) if d % w == 0) for d in (k, n)), (m, k, n)
 
 
 @pytest.mark.parametrize("m,k,n,min_blocks", [

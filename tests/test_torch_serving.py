@@ -221,7 +221,7 @@ def test_video_server_matches_reference_on_carried_weights():
 def _tiny_calibration(seed: int = 0) -> serving.CalibrationConfig:
     return serving.CalibrationConfig(
         seed=seed,
-        train_steps={"resnet-50": 2, "squeezenet": 2},
+        train_steps={"resnet-50": 2, "squeezenet": 2, "efficientnet-b7": 2, "swin-b": 2},
         batch_sizes=(1,),
         warmup=1,
         repeats=1,
@@ -230,14 +230,16 @@ def _tiny_calibration(seed: int = 0) -> serving.CalibrationConfig:
     )
 
 
-def test_calibration_artifact_loads_in_both_packages(tmp_path):
-    cfg = dataclasses.replace(_tiny_calibration(), model_names=("resnet-50",))
+def _artifact_loads_in_both_packages(tmp_path, name: str, res: int) -> None:
+    """``calibrate`` on one model at tiny budgets: an artifact both packages
+    load into equal specs, and a live NPU endpoint."""
+    cfg = dataclasses.replace(_tiny_calibration(), model_names=(name,), res=res)
     cal = serving.calibrate(cfg, device=CPU)
     path = serving.save_calibration(cal.artifact, tmp_path / "port.json")
     art = jserving.load_calibration(path)
     (m,) = art["models"]
     assert art["schema"] == "repro/calibration@1" and art["backend"] == "cpu"
-    assert m["provenance"]["kernel"].startswith("kernels/npu_matmul")
+    assert m["name"] == name and m["provenance"]["kernel"].startswith("kernels/npu_matmul")
     assert set(m["acc_server"]) == {"45", "90", "134", "179", "224"}
     assert m["t_npu_ms"] >= 1.0 and m["t_server_ms"] >= 1.0
     pj = jsession.ScenarioSpec(policy="max_accuracy", models=art["models"], n_frames=4)
@@ -245,6 +247,19 @@ def test_calibration_artifact_loads_in_both_packages(tmp_path):
     assert pt.to_json() == pj.to_json()
     logits = cal.models[0].npu_endpoint(np.zeros((1, cfg.res, cfg.res, 3), np.float32))
     assert logits.shape == (1, cfg.n_classes)
+
+
+@pytest.mark.parametrize("name", ["efficientnet-b7", "swin-b"])
+def test_calibration_artifact_of_new_families_loads_in_both_packages(tmp_path, name):
+    """Smoke training of both families (EfficientNet's BatchNorm state through
+    its rest blocks; Swin's odd blocks shifted).  Swin's smoke config takes
+    32² frames only (its token grid is fixed by ``img_res``, as in the
+    reference), so both calibrate at 32²."""
+    _artifact_loads_in_both_packages(tmp_path, name, res=32)
+
+
+def test_calibration_artifact_loads_in_both_packages(tmp_path):
+    _artifact_loads_in_both_packages(tmp_path, "resnet-50", res=_tiny_calibration().res)
 
     # ... and the other way: an artifact written by the reference package.
     payload = jsession._model_to_json(
@@ -261,24 +276,40 @@ def test_calibration_artifact_loads_in_both_packages(tmp_path):
         serving.load_calibration(tmp_path / "bad.json")
 
 
-def test_run_serving_main_path_on_cpu(monkeypatch):
-    """The launch CLI -> Session.run_serving -> calibrate -> VideoServer +
-    EdgeBatchServer path, end to end at tiny budgets on an explicit CPU.
-    Each timed call runs once and reads as 2 ms, so the plan does not hang
-    on how busy the test machine's CPU is."""
+def _serve_on_cpu(monkeypatch, models=None):
+    """``Session(spec, device="cpu").run_serving()`` on the launch CLI's spec
+    at 20 frames (``models`` in place of its pair where given), at tiny
+    budgets.  Each timed call runs once and reads as 2 ms, so the plan does
+    not hang on how busy the test machine's CPU is."""
     monkeypatch.setattr(serving.CalibrationConfig, "smoke", staticmethod(_tiny_calibration))
     # (the module, not the same-named function that the package re-exports)
     calibrate_module = importlib.import_module("repro_torch.serving.calibrate")
     monkeypatch.setattr(calibrate_module, "_median_s", lambda call, **kw: (call(), 0.002)[1])
     spec, device = serve.build_spec(["--frames", "20", "--bandwidth", "3.0", "--device", "cpu"])
     assert device == "cpu"
+    if models is not None:
+        spec = dataclasses.replace(spec, models=models)
     report = session.Session(spec, device=device).run_serving()
     meta = report.meta
-    assert meta["frames"] == 20 and meta["deadline_met_frac"] == 1.0
+    assert meta["frames"] == 20 and report.stats.frames_processed == 20
     assert meta["calibration"]["schema"] == "repro/calibration@1"
+    assert [m["name"] for m in meta["calibration"]["models"]] == [m.name for m in spec.models]
     assert all(m["t_npu_ms"] == 2.0 for m in meta["calibration"]["models"])
-    assert report.stats.frames_processed == 20
     assert "batch" in meta
+    return meta
+
+
+def test_run_serving_main_path_on_cpu(monkeypatch):
+    """The launch CLI -> Session.run_serving -> calibrate -> VideoServer +
+    EdgeBatchServer path, end to end at tiny budgets on an explicit CPU."""
+    assert _serve_on_cpu(monkeypatch)["deadline_met_frac"] == 1.0
+
+
+def test_run_serving_effnet_and_swin_on_cpu(monkeypatch):
+    """The front door takes any classifier of the configs by name, as the
+    reference's does: EfficientNet-B7 and Swin-B answer every frame."""
+    meta = _serve_on_cpu(monkeypatch, ({"name": "efficientnet-b7"}, {"name": "swin-b"}))
+    assert meta["npu_frames"] + meta["edge_frames"] == 20
 
 
 @pytest.mark.parametrize("entry", [
