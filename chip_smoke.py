@@ -23,7 +23,10 @@ Phases (each raises on failure, so any failure exits non-zero):
                   FLASH_SHAPES (tests/test_kernels.py's, ragged 17·n+3 sizes,
                   every bf16 head dim at batch 1 and 8, causal S > T, the
                   smoke ViT's and ViT-S/16's shapes, head dims 8 and 72 that
-                  run zero-padded to the kernel's 16 and 128): the reference's
+                  run zero-padded to the kernel's 16 and 128, the LMs'
+                  prefill at 4096) and LONG_FLASH_SHAPES (qwen3's prefill at
+                  32768, its plain version in query-row chunks and untimed):
+                  the reference's
                   tolerances, kernel / plain / library (SDPA) / bound times,
                   blocks and kernel (mma = tensor cores, fma = CUDA cores);
                   then a misaligned bf16 call, which must take the CUDA-core
@@ -42,6 +45,19 @@ Phases (each raises on failure, so any failure exits non-zero):
                   variants at batch 1 and 8; then 60 frames the same way as
                   serve_full on profiles of those times, launches = 219 x
                   B7's NPU frames
+ 5c. lm_full      the four decoder LMs through launch/steps.build_cell, every
+                  config whole (LM_CASES; seed-0 bf16 weights drawn on the
+                  card): causal prefill at batch 1 (qwen3 at prefill_32k's
+                  32768 and at 4096, the others at 4096), one flash launch a
+                  layer, the last-token logits against the same prefill under
+                  the plain attention on f32-upcast q, k, v (an MoE's expert
+                  picks pinned), with the bf16-score plain attention logged as
+                  a control; 16 decode steps at decode_32k's cache length
+                  (batch 4, lower where the weights are large) against the
+                  kernel's prefill of the same tokens; qwen3's int8 cache
+                  against its bf16 cache; prefill ms and tokens/s, decode ms a
+                  step (median of passes after a warm one), flash launches,
+                  peak memory
   6. serving      Session(spec, device="cuda").run_serving() on the default
                   spec of ``python -m repro_torch.launch.serve --frames 64``,
                   then on the same spec with models ({"name": "vit-s16"},
@@ -100,7 +116,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   (both kernels: launches on the main path, 0 in phases
                   8-12), then the contract's last line
 
-Every main-path phase (serve_full, vit_full, zoo_full, serving) sets both
+Every main-path phase (serve_full, vit_full, zoo_full, lm_full, serving) sets both
 kernels' launch counts to 0 just before it runs and reads them just after;
 while they run, every shape each kernel's wrapper is called at is recorded.
 
@@ -161,9 +177,48 @@ FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.p
     # command-r smoke config (8 heads over 2 KV heads, hd 8, causal) and
     # DiT-XL/2 at 256² (256 latent tokens, 16 heads of 1152 / 16 = 72)
     (2, 32, 32, 8, 2, 8, True, "bfloat16"), (1, 256, 256, 16, 16, 72, False, "bfloat16"),
+    # the LMs' causal prefill at S = 4096, batch 1 (lm_full): qwen3-0.6b (16 heads
+    # over 8, G = 2), command-r-35b (64 over 8, G = 8), the MoEs (16 over 16, G = 1)
+    (1, 4096, 4096, 16, 8, 128, True, "bfloat16"), (1, 4096, 4096, 64, 8, 128, True, "bfloat16"),
+    (1, 4096, 4096, 16, 16, 128, True, "bfloat16"),
 ]
 FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (0.05, 0.02)}  # (rtol, atol): tests/test_kernels.py's
 VIT_LOGIT_RTOL = 0.02  # max|kernel - plain attention| over max|logit| of the full-width ViT forward
+PLAIN_SCORES = 1 << 28  # score elements of one plain-attention call; longer queries run in row chunks
+PLAIN_TIMED_SCORES = 1 << 30  # the plain version is timed (one call, all its scores held) up to this many
+# lm_full: the four decoder LMs at full config through launch/steps.build_cell,
+# seed-0 weights drawn on the card in bf16.  (name, prefill lengths at batch 1,
+# decode batch, int8-cache check).  Cuts: prefill_32k's batch 32 -> 1 (its cache
+# for 32 would be 120 GB); decode_32k's batch 128 -> 4 (its 32768-slot cache is
+# 3.8 GB a sequence for qwen3-0.6b, 7.5 for deepseek-moe-16b, 6.4 for
+# qwen2-moe-a2.7b), and command-r-35b's to 2: its 64.8 GB of weights and 5.4 GB
+# of cache a sequence put batch 4 at 86.3 GB, above the card's 85.0.
+LM_LONG = 32768  # prefill_32k's length
+LM_PREFILL = 4096
+LM_DECODE_LEN = 32768  # decode_32k's cache length
+LM_DECODE_STEPS = 16
+LM_DECODE_REPEATS = 3  # timed decode passes, after the checked one
+LM_CASES = (
+    ("qwen3-0.6b", (LM_LONG, LM_PREFILL), 4, True),
+    ("deepseek-moe-16b", (LM_PREFILL,), 4, False),
+    ("command-r-35b", (LM_PREFILL,), 2, False),
+    ("qwen2-moe-a2.7b", (LM_PREFILL,), 4, False),
+)
+LONG_FLASH_SHAPES = [(1, LM_LONG, LM_LONG, 16, 8, 128, True, "bfloat16")]  # qwen3-0.6b's prefill_32k
+# Last-token logits, max|difference| over max|logit|, at full width with random
+# bf16 weights: the kernel's prefill against the plain attention on f32-upcast
+# q, k, v (which computes scores as the kernel does, in f32 from bf16 inputs),
+# and decode (the reference's masked _sdpa, bf16 scores) against the kernel's
+# prefill of the same tokens.  A fixed limit: on the card (NVIDIA H100 80GB
+# HBM3, 700 W) the sound prefills read 1.43-2.62% (the bf16-score plain
+# attention, as a control, 1.50-3.05%) and the sound decodes 1.55-2.37%, where
+# LM_CONTROL's wrong paths read 131% (a non-causal prefill) and 105% (a decode
+# whose token does not see itself); PERF.md §6.
+LM_LOGIT_RTOL = 0.02  # the smoke configs on the card (tests/test_torch_cuda.py)
+LM_FULL_RTOL = 0.04
+LM_CONTROL = "qwen3-0.6b"  # lm_full also runs those two wrong paths of this model and holds them beyond the limit
+TOP1_TIE_ULPS = 2  # compare_logits: another top-1 only where the reference's top two are this close
+LM_INT8_REL = 0.05  # ||int8-cache logits - bf16-cache logits|| / ||bf16-cache logits|| (tests/test_models.py:183)
 GEMMS_PER_FORWARD = {"resnet-50": 54, "squeezenet": 26}  # 53 convs + head; 25 convs + classifier conv
 B7, SWIN = "efficientnet-b7", "swin-b"  # zoo_full's classifiers
 # stem + 3 for each of stage 0's four expand-1 blocks + 4 (expand, SE pair,
@@ -608,6 +663,26 @@ def flash_bound(B, S, T, H, KH, hd, causal, dtype) -> tuple[float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, 4.0 * B * H * hd * pairs / peak * 1e3
 
 
+def plain_sdpa(torch, flash_ref, q, k, v, *, causal: bool):
+    """``flash_ref.sdpa_ref``, a run of query rows at a time so that no call
+    holds more than ``PLAIN_SCORES`` scores (one call at S = T = 32768 would
+    hold 16 x 32768² f32 scores, 68 GB).  A causal chunk of rows [i, j) takes
+    the keys up to ``j + T - S``, so the bottom-right aligned mask of each
+    call is the whole problem's.  Causal S > T (rows with no key) stays one
+    call."""
+    B, S, H, _ = q.shape
+    T = k.shape[1]
+    rows = max(1, PLAIN_SCORES // (B * H * T))
+    if rows >= S or (causal and S > T):
+        return flash_ref.sdpa_ref(q, k, v, causal=causal)
+    out = []
+    for i in range(0, S, rows):
+        j = min(S, i + rows)
+        t = j + T - S if causal else T
+        out.append(flash_ref.sdpa_ref(q[:, i:j], k[:, :t], v[:, :t], causal=causal))
+    return torch.cat(out, dim=1)
+
+
 def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, offset: int = 0) -> dict:
     import torch.nn.functional as F
 
@@ -621,7 +696,7 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, off
               "blocks": flash_ops.blocks(B, S, H, KH), "width": flash_ops.padded_head_dim(hd)}
     out = flash_ops.flash_attention(q, k, v, causal=causal)
     # the plain version on the f32-upcast inputs (the reference's bf16 test)
-    plain = flash_ref.sdpa_ref(q.float(), k.float(), v.float(), causal=causal)
+    plain = plain_sdpa(torch, flash_ref, q.float(), k.float(), v.float(), causal=causal)
     torch.cuda.synchronize()
     rtol, atol = FLASH_TOL[dt]
     diff = (out.float() - plain).abs()
@@ -642,10 +717,12 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, off
                                               attn_mask=mask, is_causal=causal and S == T).transpose(1, 2)
 
     b_bytes, b_ops = flash_bound(*shape)
+    plain_timed = B * H * S * T <= PLAIN_TIMED_SCORES
     return {
         "ok": ok, "max_abs_err": float(diff.max()),
         "library_err": float((library().float() - plain).abs().max()),
-        "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain_fn), "library_ms": graph_ms(torch, library),
+        "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain_fn) if plain_timed else None,
+        "library_ms": graph_ms(torch, library),
         "call_ms": cuda_ms(torch, kernel),
         "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         **design,
@@ -653,18 +730,20 @@ def compare_flash(torch, flash_ops, flash_ref, shape, *, timed: bool = True, off
 
 
 def phase_flash(torch, flash_ops, flash_ref) -> dict:
-    """Returns the rows by shape."""
+    """Returns the rows by shape.  The plain version is timed only up to
+    PLAIN_TIMED_SCORES scores (LONG_FLASH_SHAPES' would be 68 GB)."""
     rows = {}
     log("flash_attention: device ms per call (CUDA graph); k_call = per eager call (host launch included)")
     log(f"{'B':>2} {'S':>4} {'T':>4} {'H':>3} {'KH':>3} {'hd':>4} {'causal':>6} {'dtype':>8} {'kernel':>8} "
         f"{'plain':>8} {'library':>8} {'bound':>9} {'by':>5} {'k_call':>7} {'max_err':>9} {'lib_err':>9} "
         f"{'blocks':>6} path width ok")
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + LONG_FLASH_SHAPES:
         r = compare_flash(torch, flash_ops, flash_ref, shape)
         rows[shape] = r
         B, S, T, H, KH, hd, causal, dt = shape
+        plain = "-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}"
         log(f"{B:>2} {S:>4} {T:>4} {H:>3} {KH:>3} {hd:>4} {str(causal):>6} {dt:>8} {r['ms']:>8.4f} "
-            f"{r['plain_ms']:>8.4f} {r['library_ms']:>8.4f} {r['bound_ms']:>9.6f} {r['bound_by'][:5]:>5} "
+            f"{plain:>8} {r['library_ms']:>8.4f} {r['bound_ms']:>9.6f} {r['bound_by'][:5]:>5} "
             f"{r['call_ms']:>7.4f} {r['max_abs_err']:>9.2e} {r['library_err']:>9.2e} {r['blocks']:>6} "
             f"{r['path']:>4} {r['width']:>5} {r['ok']}")
     bad = [k for k, r in rows.items() if not r["ok"]]
@@ -1012,6 +1091,284 @@ def phase_zoo_full(torch, A, configs, common, quant, ops, flash_ops, ref, core, 
     check(npu_by_model[B7] > 0 and b7_calls == npu_by_model[B7], f"{B7} NPU frames {npu_by_model}, calls {b7_calls}")
     check(int8 == ZOO_GEMMS[B7] * b7_calls and flash == 0, f"int8 launches {int8}, flash launches {flash}")
     return int8, flash
+
+
+# ---------------------------------------------------------------------------
+# 5c. lm_full: the decoder LMs' prefill and decode at full width
+# ---------------------------------------------------------------------------
+
+
+def compare_logits(got, want) -> dict:
+    """max|got - want| over max|want| (``rel``), and top-1 over the rows of
+    [..., V] logits: ``same`` rows pick the same token; ``top1_ok`` holds
+    where every other row is a tie at bf16's resolution, ``want``'s top two
+    at most TOP1_TIE_ULPS bf16 ulps apart (ulps at its top logit).  The tie
+    band does not grow with the error: a row whose top two lie further apart
+    must pick the same token, however far ``got`` is from ``want``."""
+    got, want = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    top = want.topk(2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    ulp = (top[:, 0].abs().log2().floor() - 7).exp2()  # bf16 keeps 8 significant bits
+    same = got.argmax(-1) == want.argmax(-1)
+    return {"rel": err / scale, "err": err, "scale": scale, "same": int(same.sum()), "rows": len(same),
+            "top1_ok": bool((same | (gap <= TOP1_TIE_ULPS * ulp)).all()), "margin": float(gap.min())}
+
+
+def agreement(c: dict) -> str:
+    return (f"max|d| {c['err']:.4g} = {c['rel']:.4%} of max|logit| {c['scale']:.4g}, top-1 equal on "
+            f"{c['same']}/{c['rows']} rows (smallest top-2 margin {c['margin']:.4g})")
+
+
+@contextlib.contextmanager
+def expert_picks(L, picks: list, *, replay: bool = False):
+    """While active, every MoE call's top-k (``layers._top_k``) is recorded
+    into ``picks`` in call order, or, with ``replay``, each call takes the
+    next recorded pick weighted by its own router probabilities.  Yields a
+    list that gets, per replayed call, the number of tokens whose own pick
+    differed.  Two bf16 forwards that round differently flip the experts of
+    tokens whose k-th and (k+1)-th router probabilities nearly tie; pinning
+    the picks compares what else differs (attention, the cache)."""
+    real = L._top_k
+    recorded = iter(list(picks))
+    flips = []
+
+    def top_k(probs, k):
+        w, idx = real(probs, k)
+        if not replay:
+            picks.append(idx)
+            return w, idx
+        pinned = next(recorded)
+        flips.append((idx.sort(-1).values != pinned.sort(-1).values).any(-1).sum())
+        return probs.gather(-1, pinned), pinned
+
+    with mock.patch.object(L, "_top_k", top_k):
+        yield flips
+
+
+@contextlib.contextmanager
+def kept_tally(L, tally: list):
+    """While active, every MoE dispatch adds (tokens kept, tokens routed) to
+    ``tally`` (device tensors)."""
+    real = L._dispatch_indices
+
+    def counted(eid, n_experts, capacity):
+        out = real(eid, n_experts, capacity)
+        tally.append((out[3].sum(), out[3].numel()))
+        return out
+
+    with mock.patch.object(L, "_dispatch_indices", counted):
+        yield
+
+
+def lm_arch(A, configs, name: str, lengths, dec_batch: int):
+    """The config of ``name`` with lm_full's shapes: a prefill at each
+    length, batch 1, and decode_32k at ``dec_batch``."""
+    shapes = tuple(A.ShapeSpec(f"prefill_{S}", "prefill", batch=1, seq=S) for S in lengths)
+    shapes += (A.ShapeSpec("decode_32k", "decode", batch=dec_batch, seq=LM_DECODE_LEN),)
+    return dataclasses.replace(configs.get(name), shapes=shapes)
+
+
+def lm_flash_shapes(A, configs) -> list:
+    """(B, S, T, H, KH, hd, causal, dtype) of every lm_full prefill's attention."""
+    out = []
+    for name, lengths, dec_batch, _ in LM_CASES:
+        cfg = lm_arch(A, configs, name, lengths, dec_batch).cfg
+        out += [(1, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, "bfloat16") for S in lengths]
+    return list(dict.fromkeys(out))
+
+
+def blind_sdpa(real):
+    """``layers._sdpa`` with the last valid slot of a one-token query masked
+    out: a decode whose new token does not see its own key (a wrong path)."""
+
+    def sdpa(c, q, k, v, mask=None):
+        if mask is not None and q.shape[1] == 1:
+            mask = mask & mask.roll(-1, -1)
+        return real(c, q, k, v, mask)
+
+    return sdpa
+
+
+def upcast_attention(torch, flash_ref, q, k, v, *, causal: bool):
+    """The plain attention on f32-upcast q, k, v (scores, softmax and the
+    weighted sum in f32, as the reference's kernel test holds the kernel),
+    cast back to the inputs' dtype."""
+    return plain_sdpa(torch, flash_ref, q.float(), k.float(), v.float(), causal=causal).to(q.dtype)
+
+
+def device_profile(torch, fn) -> str:
+    """Device busy ms of one ``fn()`` call under torch.profiler, and the
+    three device ops with the most self time (run once unprofiled first)."""
+    if DEVICE != "cuda":
+        return "not measured (no card)"
+    from torch.profiler import ProfilerActivity, profile
+
+    timed(torch, fn)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        timed(torch, fn)
+    events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in events[:3])
+    return f"device busy {busy:.2f} ms; most: {top}"
+
+
+def phase_lm_full(torch, A, configs, common, steps, lm, L, flash_ops, flash_ref, median_s) -> dict:
+    """The four decoder LMs at full config through ``launch/steps.build_cell``
+    (LM_CASES; weights from the seed, drawn on the card in bf16, attention
+    matrices at their own fan-in).  Each prefill launches the flash kernel
+    once a layer; its last-token logits are held within LM_FULL_RTOL of
+    the same prefill under the plain attention on f32-upcast q, k, v (an
+    MoE's expert picks pinned to the kernel run's), with the plain attention
+    on bf16 q, k, v (bf16 scores) logged beside as a control.
+    LM_DECODE_STEPS decode steps from an empty decode_32k cache are held
+    within LM_FULL_RTOL of the kernel's prefill of the same tokens (an MoE:
+    one that drops no token, with the decode's picks); qwen3-0.6b's int8
+    cache within LM_INT8_REL of its bf16 cache, with equal top-1.  For
+    LM_CONTROL, a non-causal prefill and a decode whose token does not see
+    itself must lie beyond LM_FULL_RTOL.  Returns the report: per model,
+    prefill ms and tokens/s, decode ms a step, flash launches a prefill,
+    distances, peak memory."""
+
+    def plain_attention(q, k, v, *, causal=True, **_):
+        return upcast_attention(torch, flash_ref, q, k, v, causal=causal)
+
+    def bf16_attention(q, k, v, *, causal=True, **_):
+        return plain_sdpa(torch, flash_ref, q, k, v, causal=causal)
+
+    def under(attention, fn, picks):
+        """``fn()`` with ``attention`` in place of the flash op and the MoE
+        picks pinned to ``picks``; returns (result, picks that flipped)."""
+        with mock.patch.object(flash_ops, "attention", attention), expert_picks(L, picks, replay=True) as flips:
+            out = fn()
+        return out, int(sum(flips))
+
+    report = {}
+    for name, lengths, dec_batch, int8 in LM_CASES:
+        arch = lm_arch(A, configs, name, lengths, dec_batch)
+        cfg = arch.cfg
+        n_layers, moe = cfg.n_layers, cfg.moe is not None
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cells = {s.name: steps.build_cell(arch, s.name) for s in arch.shapes}
+        params, draw_s = timed(torch, lambda: own_fan_in(cells[arch.shapes[0].name].init_arg(0, SEED, DEVICE), cfg))
+        log(f"lm_full: {name}: {n_layers} layers, {A.n_params(arch)} params, "
+            f"{common.param_bytes(cells['decode_32k'].arg_specs[0]) / 1e9:.2f} GB in bf16, drawn on the card in "
+            f"{draw_s:.2f} s (seed {SEED}; attention matrices at their own fan-in)")
+        rows = report[name] = {"layers": n_layers, "prefill": {}}
+        kernel_logits = {}
+        for shape in arch.shapes[:-1]:
+            cell = cells[shape.name]
+            batch = A.make_inputs(arch, shape, SEED, device=DEVICE)
+            picks, tally = [], []
+            before = flash_ops.flash_attention.launches
+            with expert_picks(L, picks), kept_tally(L, tally):
+                logits, _ = timed(torch, lambda: cell(params, batch)[0])
+            launches = flash_ops.flash_attention.launches - before
+            kernel_logits[shape.seq] = logits
+            check(launches == n_layers, f"{name} {shape.name} launched the flash kernel {launches} times, want {n_layers}")
+            check(tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                  f"{name} {shape.name} logits malformed: {tuple(logits.shape)}")
+            plain, flips = under(plain_attention, lambda: cell(params, batch)[0], picks)
+            bf16, _ = under(bf16_attention, lambda: cell(params, batch)[0], picks)
+            c, control = compare_logits(logits, plain), compare_logits(bf16, plain)["rel"]
+            kept = (f"; MoE tokens kept {float(sum(k for k, _ in tally)) / sum(n for _, n in tally):.4%} of "
+                    f"{sum(n for _, n in tally)} routed; without pinning the plain run's picks differ on {flips} of "
+                    f"{n_layers * shape.seq} token-layers" if moe else "")
+            ms = median_s(lambda: cell(params, batch)[0].cpu(), warmup=1, repeats=3) * 1e3
+            rows["prefill"][shape.seq] = {"ms": ms, "tokens_per_s": shape.seq / ms * 1e3, "launches": launches,
+                                          "rel": c["rel"], "control": control}
+            log(f"lm_full: {name} {shape.name} (batch 1, S {shape.seq}): {ms:.2f} ms a prefill, "
+                f"{shape.seq / ms * 1e3:.0f} tokens/s; {launches} flash launches; logits vs the f32-upcast plain "
+                f"attention: {agreement(c)} (limit {LM_FULL_RTOL:.2%}); the bf16-score plain attention's "
+                f"(control) {control:.4%}{kept}")
+            check(c["rel"] <= LM_FULL_RTOL and c["top1_ok"], f"{name} {shape.name}: kernel prefill differs from plain")
+            if shape.seq == LM_PREFILL:
+                log(f"lm_full: {name} {shape.name} profile ({ms:.2f} ms a prefill on the host clock): "
+                    + device_profile(torch, lambda: cell(params, batch)))
+
+        # decode_32k from an empty cache, against a prefill of the same tokens
+        dec = cells["decode_32k"]
+        steps_n = LM_DECODE_STEPS
+        tokens = A.make_inputs(arch, A.ShapeSpec("tokens", "prefill", batch=dec_batch, seq=steps_n), SEED + 1,
+                               device=DEVICE)["tokens"]
+
+        def decode(cell, picks, measure=True):
+            """LM_DECODE_STEPS steps from the cell's empty cache, the MoE picks
+            recorded into ``picks``; then, with ``measure``, the same pass
+            timed: (its last logits, ms a step as the median of
+            LM_DECODE_REPEATS passes after that first one, the device profile
+            of one more step)."""
+            empty = cell.init_arg(1, SEED, DEVICE)
+
+            def run():  # every pass starts at length 0 and rewrites the same slots
+                cache = empty
+                for s in range(steps_n):
+                    logits, cache = cell(params, cache, {"token": tokens[:, s:s + 1]})
+                return logits, cache
+
+            with expert_picks(L, picks):
+                (logits, cache), _ = timed(torch, run)
+            check(int(cache["len"]) == steps_n, f"{name}: cache length {int(cache['len'])} after {steps_n} steps")
+            if not measure:
+                return logits, None, None
+            passes = sorted(timed(torch, run)[1] for _ in range(LM_DECODE_REPEATS))
+            ms = passes[len(passes) // 2] / steps_n * 1e3
+            prof = device_profile(torch, lambda: cell(params, cache, {"token": tokens[:, :1]}))
+            return logits, ms, prof
+
+        before = flash_ops.flash_attention.launches
+        picks = []
+        logits, step_ms, prof = decode(dec, picks)
+        check(flash_ops.flash_attention.launches == before, f"{name}: decode launched the flash kernel")
+        check(tuple(logits.shape) == (dec_batch, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              f"{name} decode logits malformed")
+        no_drop = cfg
+        if moe:
+            no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        by_layer = [torch.cat(picks[layer::n_layers], dim=1) for layer in range(n_layers)] if moe else []
+        (prefilled, _), flips = under(flash_ops.attention, lambda: lm.prefill(no_drop, params, tokens), by_layer)
+        (plain, _), _ = under(plain_attention, lambda: lm.prefill(no_drop, params, tokens), by_layer)
+        c, vs_plain = compare_logits(logits, prefilled), compare_logits(logits, plain)["rel"]
+        rows["decode"] = {"batch": dec_batch, "cache": LM_DECODE_LEN, "ms_per_step": step_ms, "rel": c["rel"],
+                          "vs_plain": vs_plain}
+        pinned = f" that drops none (the decode's picks pinned; its own differ on {flips} token-layers)" if moe else ""
+        log(f"lm_full: {name} decode_32k (batch {dec_batch}, {LM_DECODE_LEN}-slot cache, {steps_n} steps from empty): "
+            f"{step_ms:.2f} ms a step, {dec_batch / step_ms * 1e3:.0f} tokens/s; last logits vs the kernel's prefill "
+            f"of the same {steps_n} tokens{pinned}: {agreement(c)} (limit {LM_FULL_RTOL:.2%}); vs the same prefill "
+            f"under the f32-upcast plain attention {vs_plain:.4%}")
+        check(c["rel"] <= LM_FULL_RTOL and c["top1_ok"], f"{name}: decode differs from prefill")
+        log(f"lm_full: {name} decode step profile ({step_ms:.2f} ms a step on the host clock): {prof}")
+        if int8:
+            quant = steps.build_cell(dataclasses.replace(arch, cfg=dataclasses.replace(cfg, kv_quant=True)), "decode_32k")
+            q_logits, q_ms, prof = decode(quant, [])
+            rel = float(torch.linalg.norm((q_logits - logits).float()) / torch.linalg.norm(logits.float()))
+            c = compare_logits(q_logits, logits)
+            rows["decode_int8"] = {"ms_per_step": q_ms, "rel": rel}
+            log(f"lm_full: {name} decode_32k with the int8 cache: {q_ms:.2f} ms a step; ||int8 - bf16|| / ||bf16|| "
+                f"{rel:.4%} (tolerance {LM_INT8_REL:.0%}); {agreement(c)}")
+            check(0 < rel < LM_INT8_REL and c["same"] == c["rows"],
+                  f"{name}: int8-cache decode too far from the bf16 cache, or another top-1")
+            log(f"lm_full: {name} int8-cache decode step profile: {prof}")
+        if name == LM_CONTROL:  # two wrong paths, which the limit must catch
+            shape = arch.shape(f"prefill_{LM_PREFILL}")
+            batch = A.make_inputs(arch, shape, SEED, device=DEVICE)
+            unmasked = lambda q, k, v, **_: upcast_attention(torch, flash_ref, q, k, v, causal=False)  # noqa: E731
+            wrong_prefill, _ = under(unmasked, lambda: cells[shape.name](params, batch)[0], [])
+            with mock.patch.object(L, "_sdpa", blind_sdpa(L._sdpa)):
+                wrong_decode, _, _ = decode(dec, [], measure=False)
+            wrong = rows["wrong"] = {"prefill": compare_logits(wrong_prefill, kernel_logits[LM_PREFILL])["rel"],
+                                     "decode": compare_logits(wrong_decode, prefilled)["rel"]}
+            log(f"lm_full: {name} wrong paths, which must lie beyond the limit ({LM_FULL_RTOL:.2%}): a non-causal "
+                f"prefill (the plain attention without its mask) {wrong['prefill']:.4%} from the kernel's; a decode "
+                f"whose token does not see its own key {wrong['decode']:.4%} from the kernel's prefill")
+            check(min(wrong.values()) > LM_FULL_RTOL, f"{name}: the limit passes a wrong path: {wrong}")
+        del params
+        if DEVICE == "cuda":
+            rows["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            log(f"lm_full: {name}: peak card memory {rows['peak_gb']:.2f} GB")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2635,8 +2992,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.npu_matmul import ops, ref
-    from repro_torch.launch import serve
-    from repro_torch.models import common
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import common, lm
+    from repro_torch.models import layers as L
     from repro_torch.serving.calibrate import _median_s
 
     t0 = time.perf_counter()
@@ -2663,6 +3021,12 @@ def main() -> int:
         zoo_int8, zoo_flash = phase("zoo_full", lambda: phase_zoo_full(
             torch, A, configs, common, quant, ops, flash_ops, ref, core, serving, _median_s))
         torch.cuda.empty_cache()
+        ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+        lm_report = phase("lm_full", lambda: phase_lm_full(
+            torch, A, configs, common, steps, lm, L, flash_ops, flash_ref, _median_s))
+        lm_int8, lm_flash = ops.int8_matmul.launches, flash_ops.flash_attention.launches
+        check(lm_int8 == 0, f"lm_full launched the int8 kernel {lm_int8} times")
+        torch.cuda.empty_cache()
         serving_int8, serving_flash = phase("serving", lambda: phase_serving(torch, ops, flash_ops, serve, session))
     more_gemms, more_flash = phase("main shapes", lambda: phase_main_shapes(
         torch, ops, ref, flash_ops, flash_ref, gemms - gemm_rows.keys(), attns - flash_rows.keys()))
@@ -2681,10 +3045,26 @@ def main() -> int:
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + zoo_int8 + serving_int8
-    flash_launches = vit_flash + zoo_flash + serving_flash
+    flash_launches = vit_flash + zoo_flash + lm_flash + serving_flash
     log(f"kernels: [int8_matmul: {int8_launches} launches on the main path (serve_full {full_launches}, "
-        f"vit_full {vit_int8}, zoo_full {zoo_int8}, serving {serving_int8}); flash_attention: {flash_launches} "
-        f"launches on the main path (vit_full {vit_flash}, zoo_full {zoo_flash}, serving {serving_flash})]")
+        f"vit_full {vit_int8}, zoo_full {zoo_int8}, lm_full 0, serving {serving_int8}); flash_attention: "
+        f"{flash_launches} launches on the main path (vit_full {vit_flash}, zoo_full {zoo_flash}, lm_full {lm_flash}, "
+        f"serving {serving_flash})]")
+    for name, r in lm_report.items():
+        log(f"lm_full summary {name} ({r['layers']} layers): prefill " + ", ".join(
+            f"S {S}: {p['ms']:.2f} ms, {p['tokens_per_s']:.0f} tokens/s, {p['launches']} flash launches"
+            for S, p in r["prefill"].items()) + f"; decode batch {r['decode']['batch']}: "
+            f"{r['decode']['ms_per_step']:.2f} ms a step" + (
+                f", int8 cache {r['decode_int8']['ms_per_step']:.2f}" if "decode_int8" in r else "")
+            + f"; peak {r.get('peak_gb', 0.0):.2f} GB")
+    lm_shapes = lm_flash_shapes(A, configs)
+    check(set(lm_shapes) <= flash_rows.keys(), f"lm_full prefill shapes not timed in the flash phase: {lm_shapes}")
+    for shape in lm_shapes:
+        r = flash_rows[shape]
+        plain = "not timed (one call would hold all its scores)" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}"
+        log(f"flash at LM prefill shape {shape}: kernel {r['ms']:.4f} ms (eager {r['call_ms']:.4f}), SDPA "
+            f"{r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x), plain {plain}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it), {r['blocks']} blocks")
     log(f"int8_matmul per frame of {B7} ({ZOO_GEMMS[B7]} calls at batch 1), beside the ResNet-50 + SqueezeNet frame "
         "of the kernels line: " + "  ".join(f"{k}={b7_frame[k]:.4f}" for k in (
             "ms", "plain_ms", "library_ms", "call_ms", "bound_ms", "bytes_ms", "ops_ms")))

@@ -1,4 +1,5 @@
-"""Architecture registry: ``get(name)`` resolves a classifier by id.
+"""Architecture registry: ``get(name)`` resolves an arch by id — the five
+classifiers and the four decoder LMs.
 
 Each module exports CONFIG (the published config) and SMOKE (a reduced
 same-family config for CPU tests and in-process calibration).
@@ -10,6 +11,10 @@ import importlib
 from ..arch import Arch
 
 _MODULES = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "command-r-35b": "command_r_35b",
     "resnet-50": "resnet_50",
     "squeezenet": "squeezenet",
     "vit-s16": "vit_s16",

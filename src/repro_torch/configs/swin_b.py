@@ -2,11 +2,14 @@
 dims 128-256-512-1024."""
 from ..arch import Arch
 from ..models import vision
+from .shapes import VISION_SHAPES
 
 CONFIG = Arch(
     name="swin-b",
     family="swin",
     cfg=vision.SwinConfig(name="swin-b", img_res=224),
+    shapes=VISION_SHAPES,
+    notes="cls_384 uses window 12 (as Swin-B-384 does) via per-shape cfg override.",
 )
 
 SMOKE = Arch(
@@ -22,4 +25,5 @@ SMOKE = Arch(
         n_heads=(2, 4),
         n_classes=10,
     ),
+    shapes=VISION_SHAPES,
 )

@@ -5,8 +5,10 @@ numpy arrays (``jax.tree.map(np.asarray, ...)`` of its params/state) and
 returns the port's trees: conv weights (the leaves whose spec says
 ``init="conv"``) HWIO -> OIHW (stacked blocks ``[L, KH, KW, I, O]`` ->
 ``[L, O, I, KH, KW]``, kept stacked); every other leaf unchanged, whatever
-its rank (ViT's stacked ``wq [L, d, H, hd]``); BatchNorm state carried over.  Structure and shapes are
-checked against ``arch``'s own specs.  This module imports nothing of the
+its rank (ViT's stacked ``wq [L, d, H, hd]``, an LM's stacked ``blocks``
+leaves such as the MoE experts' ``[L, E, d, f]``, its ``embed``); BatchNorm
+state carried over.  Structure and shapes are checked against ``arch``'s own
+specs (for an LM, ``lm.abstract_params``).  This module imports nothing of the
 reference; it only reads arrays.
 """
 from __future__ import annotations

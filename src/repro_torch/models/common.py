@@ -26,7 +26,7 @@ class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]  # logical axis name per dim (documentation)
     dtype: torch.dtype = torch.float32
-    init: str = "normal"  # normal | zeros | ones | conv
+    init: str = "normal"  # normal | zeros | ones | embed | conv
     scale: float | None = None  # override fan-in scaling
 
     def __post_init__(self) -> None:
@@ -43,17 +43,35 @@ def _fan_in(shape: tuple[int, ...], init: str) -> float:
         return 1.0
     if init == "conv":  # [..., O, I, KH, KW]
         return float(math.prod(shape[-3:]))
+    if init == "embed":
+        return 1.0
     return float(shape[-2])
 
 
+# Elements of one f32 draw: a larger leaf (deepseek-moe's stacked experts,
+# [28, 64, 2048, 1408] = 5.2e9) is drawn a run of leading-axis slices at a
+# time, so its transient f32 copy stays at most 1 GiB.
+DRAW_ELEMENTS = 1 << 28
+
+
 def init_param(gen: torch.Generator, s: ParamSpec, device: torch.device) -> torch.Tensor:
+    """Materialize one spec: fan-in scaled normals drawn in f32 on the
+    generator's device, then cast to ``s.dtype`` on ``device``."""
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=s.dtype, device=device)
     scale = s.scale if s.scale is not None else 1.0 / math.sqrt(max(_fan_in(s.shape, s.init), 1.0))
-    x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * scale).to(device=device, dtype=s.dtype)
+    if math.prod(s.shape) <= DRAW_ELEMENTS:
+        x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return (x * scale).to(device=device, dtype=s.dtype)
+    out = torch.empty(s.shape, dtype=s.dtype, device=device)
+    rows = max(1, DRAW_ELEMENTS // math.prod(s.shape[1:]))
+    for i in range(0, s.shape[0], rows):
+        x = torch.randn((min(rows, s.shape[0] - i), *s.shape[1:]), generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[i:i + rows] = x.mul_(scale)
+    return out
 
 
 def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
@@ -87,8 +105,38 @@ def init_tree(gen: torch.Generator, specs: Tree, *, device: torch.device | str =
     return tree_map(lambda s: init_param(gen, s, device), specs)
 
 
+def abstract_tree(specs: Tree) -> Tree:
+    """``meta``-device tensors of each spec's shape and dtype: a full config
+    sized without allocating anything."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
 def param_count(specs: Tree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def param_bytes(specs: Tree) -> int:
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in tree_leaves(specs))
+
+
+# ---------------------------------------------------------------------------
+# dtype policy (mixed precision)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    def cast(self, tree: Tree) -> Tree:
+        c = self.compute_dtype
+        return tree_map(lambda x: x.to(c) if x.is_floating_point() else x, tree)
+
+
+TRAIN_POLICY = Policy()
+SERVE_POLICY = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, output_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

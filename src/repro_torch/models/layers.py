@@ -1,5 +1,7 @@
-"""Shared transformer layers: norms, RoPE, GQA attention and the GELU MLP —
-what ViT needs of the reference's ``models/layers.py``.
+"""Shared transformer layers: norms, RoPE, GQA attention (prefill and
+one-token decode against a KV cache, bf16 or int8), the GELU and SwiGLU MLPs
+and the capacity-dispatched MoE — what ViT and the decoder LMs need of the
+reference's ``models/layers.py``.
 
 Everything is a plain function over (cfg-like args, params dict, inputs);
 each layer's parameter layout comes from its ``*_specs()`` helper, key for
@@ -11,6 +13,12 @@ on the card, its plain version on the CPU.  The TPU kernel is forward-only,
 so a forward that must be differentiated takes the reference's own jnp
 branches (``blockwise_sdpa`` above ``BLOCKWISE_THRESHOLD``, else ``_sdpa``),
 as the reference's models do for training.
+
+``attention_decode`` keeps the reference's own route, ``_sdpa`` over the
+whole cache with a validity mask: the flash kernel takes its lengths from
+the host, and a decode step's length lives on the device.  The cache is
+written in place (the reference donates it) at a tensor index, so a decode
+step makes no host read.
 """
 from __future__ import annotations
 
@@ -166,9 +174,82 @@ def attention(c: AttnCfg, p, x, *, positions=None, mask=None):
     return y, (k, v)
 
 
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V [..., KH, hd].
+    ``t32 / scale`` is a true division and ``torch.round`` rounds half to
+    even, as the reference: the int8 values come out bit-equal."""
+    t32 = t.to(torch.float32)
+    amax = t32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def attention_decode(
+    c: AttnCfg, p, x, cache_k, cache_v, cache_len, *, kv_seq_axis="kv_seq",
+    k_scale=None, v_scale=None,
+):
+    """One-token decode against a KV cache.
+
+    x: [B,1,D]; cache_k/v: [B,T,KH,hd] (filled up to cache_len); cache_len: a
+    scalar int tensor (or one of a single element) — the new token writes at
+    cache_len, clamped to [0, T-1] as ``jax.lax.dynamic_update_slice`` clamps,
+    while the validity mask uses the unclamped length.  With k_scale/v_scale
+    [B,T,KH] the cache is int8.  The caches (and scales) are updated in place
+    and returned: (y [B,1,D], cache_k, cache_v[, k_scale, v_scale]).
+    ``kv_seq_axis`` names the reference's sharding axis; one card has none.
+    """
+    del kv_seq_axis
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"attention_decode takes one token, got x of shape {tuple(x.shape)}")
+    T = cache_k.shape[1]
+    quantized = k_scale is not None
+    length = cache_len.reshape(())
+    q, k_new, v_new = _qkv(c, p, x, length.reshape(1, 1).expand(B, 1))
+    idx = length.to(torch.int64).clamp(0, T - 1).reshape(1)
+    if quantized:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        for buf, new in ((cache_k, kq), (cache_v, vq), (k_scale, ks), (v_scale, vs)):
+            buf.index_copy_(1, idx, new)
+        k_full = dequantize_kv(cache_k, k_scale, q.dtype)
+        v_full = dequantize_kv(cache_v, v_scale, q.dtype)
+    else:
+        cache_k.index_copy_(1, idx, k_new.to(cache_k.dtype))
+        cache_v.index_copy_(1, idx, v_new.to(cache_v.dtype))
+        k_full, v_full = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    valid = (torch.arange(T, device=x.device) <= length).reshape(1, 1, 1, 1, T)
+    out = _sdpa(c, q, k_full, v_full, valid)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if c.bias:
+        y = y + p["bo"].to(x.dtype)
+    if quantized:
+        return y, cache_k, cache_v, k_scale, v_scale
+    return y, cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
+
+
+def swiglu_specs(d_model: int, d_ff: int, embed_axis: str = "embed") -> dict:
+    return {
+        "w_gate": spec((d_model, d_ff), (embed_axis, "mlp")),
+        "w_up": spec((d_model, d_ff), (embed_axis, "mlp")),
+        "w_down": spec((d_ff, d_model), ("mlp", embed_axis)),
+    }
+
+
+def swiglu(p, x):
+    g = torch.einsum("...d,df->...f", x, p["w_gate"].to(x.dtype))
+    u = torch.einsum("...d,df->...f", x, p["w_up"].to(x.dtype))
+    return torch.einsum("...f,fd->...d", F.silu(g) * u, p["w_down"].to(x.dtype))
 
 
 def mlp_specs(d_model: int, d_ff: int, out_dim: int | None = None) -> dict:
@@ -189,3 +270,127 @@ def _gelu(x):
 def mlp(p, x, act=_gelu):
     h = act(torch.einsum("...d,df->...f", x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype))
     return torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts — gather-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    d_model: int
+    d_ff_expert: int
+    n_experts: int  # routed experts (padded to a shardable count by config)
+    top_k: int
+    n_shared: int = 0
+    d_ff_shared: int = 0  # total shared width (already multiplied)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+
+
+def moe_specs(c: MoECfg) -> dict:
+    s = {
+        "router": spec((c.d_model, c.n_experts), ("embed", "expert"), scale=0.02),
+        "experts": {
+            "w_gate": spec((c.n_experts, c.d_model, c.d_ff_expert), ("expert", "embed", "mlp")),
+            "w_up": spec((c.n_experts, c.d_model, c.d_ff_expert), ("expert", "embed", "mlp")),
+            "w_down": spec((c.n_experts, c.d_ff_expert, c.d_model), ("expert", "mlp", "embed")),
+        },
+    }
+    if c.n_shared > 0:
+        s["shared"] = swiglu_specs(c.d_model, c.d_ff_shared)
+    return s
+
+
+def _dispatch_indices(eid_flat: torch.Tensor, n_experts: int, capacity: int):
+    """Per-row dispatch plan from flat expert assignments.
+
+    eid_flat: [..., N] integer expert ids (token-major: token t's k-th choice
+    at t*K+k); leading axes are independent rows (the reference vmaps over
+    them).  Returns (token_idx [..., E, C], slot_valid [..., E, C], pos
+    [..., N], kept [..., N]): slot (e, c) reads flat token token_idx[e, c];
+    token n lands in slot (eid[n], pos[n]) iff kept[n].  Index outputs are
+    int64.
+    """
+    N = eid_flat.shape[-1]
+    lead = eid_flat.shape[:-1]
+    dev = eid_flat.device
+    order = torch.argsort(eid_flat, dim=-1, stable=True)
+    sorted_eid = eid_flat.gather(-1, order)
+    arange = torch.arange(N, device=dev)
+    is_start = torch.ones(eid_flat.shape, dtype=torch.bool, device=dev)
+    is_start[..., 1:] = sorted_eid[..., 1:] != sorted_eid[..., :-1]
+    group_start = torch.cummax(torch.where(is_start, arange, 0), dim=-1).values
+    pos_sorted = arange - group_start  # position within expert group
+    inv = torch.argsort(order, dim=-1, stable=True)
+    pos = pos_sorted.gather(-1, inv)
+    kept = pos < capacity
+    experts = torch.arange(n_experts, dtype=eid_flat.dtype, device=dev).expand(*lead, n_experts).contiguous()
+    group_offset = torch.searchsorted(sorted_eid, experts)
+    counts = torch.searchsorted(sorted_eid, experts, right=True) - group_offset
+    slot_c = torch.arange(capacity, device=dev)
+    gather_pos = torch.clamp(group_offset[..., None] + slot_c, 0, N - 1)  # [..., E, C]
+    token_idx = order.gather(-1, gather_pos.reshape(*lead, -1)).reshape(gather_pos.shape)
+    slot_valid = slot_c < counts[..., None]
+    return token_idx, slot_valid, pos, kept
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties to the lower
+    index (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(c: MoECfg, p, x):
+    """x: [B, S, D] -> ([B, S, D], aux loss).  Gather-based capacity dispatch:
+
+      router -> top-k -> per-batch-row sort-derived slot plan -> gather tokens
+      into an [E, B, C, D] buffer -> batched expert SwiGLU -> weighted
+      scatter-add back onto the tokens.
+
+    Overflow tokens (slot >= capacity) drop, standard capacity semantics.  The
+    combine is an ``index_add_`` in the activation dtype: on CUDA its adds are
+    atomic and unordered, so a bf16 output may differ between runs in the
+    last bits.
+    """
+    B, S, D = x.shape
+    K, E = c.top_k, c.n_experts
+    N = S * K
+    capacity = int(max(1, round(N / E * c.capacity_factor)))
+
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, K)  # [B, S, K]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    eid_flat = top_e.reshape(B, N)
+    token_idx, slot_valid, _pos, _kept = _dispatch_indices(eid_flat, E, capacity)
+    # token_idx: [B, E, C] flat indices into S*K; the source token is i // K.
+    src_tok = (token_idx // K).reshape(B, E * capacity)
+    buf = x.gather(1, src_tok[..., None].expand(B, E * capacity, D)).reshape(B, E, capacity, D)
+    buf = buf.masked_fill(~slot_valid[..., None], 0.0).transpose(0, 1)  # [E, B, C, D]
+
+    w = p["experts"]
+    g = torch.einsum("ebcd,edf->ebcf", buf, w["w_gate"].to(buf.dtype))
+    u = torch.einsum("ebcd,edf->ebcf", buf, w["w_up"].to(buf.dtype))
+    out_buf = torch.einsum("ebcf,efd->ebcd", F.silu(g) * u, w["w_down"].to(buf.dtype))
+
+    # slot weight: the routing weight of the token occupying slot (b, e, c).
+    slot_w = top_w.reshape(B, N).gather(1, token_idx.reshape(B, -1)).reshape(B, E, capacity)
+    slot_w = torch.where(slot_valid, slot_w, 0.0)
+    upd = out_buf.transpose(0, 1) * slot_w[..., None].to(out_buf.dtype)  # [B, E, C, D]
+    rows = (torch.arange(B, device=x.device)[:, None] * S + src_tok).reshape(-1)
+    y = torch.zeros(B * S, D, dtype=upd.dtype, device=x.device)
+    y = y.index_add_(0, rows, upd.reshape(-1, D)).reshape(B, S, D)
+
+    if c.n_shared > 0:
+        y = y + swiglu(p["shared"], x)
+
+    # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
+    me = probs.mean(dim=(0, 1))  # mean router prob per expert
+    ones = torch.ones(B * N, dtype=torch.float32, device=x.device)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(0, eid_flat.reshape(-1), ones) / float(B * N)
+    aux = c.router_aux_weight * E * torch.sum(me * ce)
+    return y, aux

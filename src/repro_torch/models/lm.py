@@ -1,0 +1,213 @@
+"""Decoder-only LM family (dense + MoE): qwen3, command-r, qwen2-moe,
+deepseek-moe — the serving half.  Layers are stored stacked on a leading
+``[L]`` axis, as the reference scans over them; here each step is a loop
+over the layers, indexing the stack per layer (``common.index_tree``).
+
+Entry points:
+  abstract_params(cfg)                      parameter ParamSpec tree
+  forward(cfg, params, tokens)              hidden states + MoE aux loss
+  prefill(cfg, params, tokens)              logits[:, -1:] + stacked KV cache
+  decode_step(cfg, params, token, cache)    one-token decode, cache in place
+
+Prefill attention goes through ``layers.attention``, so on the card every
+layer launches the flash kernel (causal); decode keeps the reference's
+masked ``_sdpa`` over the whole cache.  ``train_loss`` waits for the
+training slice (ROADMAP item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .common import index_tree, shard, spec, stack_specs
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    moe: L.MoECfg | None = None
+    # The next three are the reference's sharding and memory settings: gradient
+    # rematerialization, sequence-sharded residuals between blocks, and the
+    # KV cache's logical sequence axis.  The port serves on one card without
+    # autograd, so they are carried and have no effect.
+    remat: bool = True
+    seq_shard_acts: bool = False
+    kv_seq_axis: str = "kv_seq"
+    # int8 KV cache (per-token/head scales): halves the decode memory term.
+    kv_quant: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def attn_cfg(self) -> L.AttnCfg:
+        return L.AttnCfg(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.hd,
+            qk_norm=self.qk_norm,
+            causal=True,
+            rope=True,
+            rope_theta=self.rope_theta,
+        )
+
+
+def _block_specs(c: LMConfig) -> dict:
+    s = {
+        "ln1": L.rmsnorm_specs(c.d_model),
+        "attn": L.attention_specs(c.attn_cfg()),
+        "ln2": L.rmsnorm_specs(c.d_model),
+    }
+    if c.moe is not None:
+        s["moe"] = L.moe_specs(c.moe)
+    else:
+        s["ffn"] = L.swiglu_specs(c.d_model, c.d_ff)
+    return s
+
+
+def abstract_params(c: LMConfig) -> dict:
+    return {
+        "embed": spec((c.vocab, c.d_model), (None, "embed_tp"), init="embed", scale=0.02),
+        "blocks": stack_specs(_block_specs(c), c.n_layers),
+        "ln_f": L.rmsnorm_specs(c.d_model),
+        "head": spec((c.d_model, c.vocab), ("embed", "vocab"), scale=0.02),
+    }
+
+
+def _ffn(c: LMConfig, blk, h):
+    """The block's second sublayer: (output, MoE aux loss or 0)."""
+    if c.moe is not None:
+        return L.moe(c.moe, blk["moe"], h)
+    return L.swiglu(blk["ffn"], h), 0.0
+
+
+def _embed(params, tokens):
+    return params["embed"].to(torch.bfloat16)[tokens]
+
+
+def _block(c: LMConfig, blk, x):
+    """One layer over the whole sequence: (x, its (k, v), MoE aux loss)."""
+    a, kv = L.attention(c.attn_cfg(), blk["attn"], L.rmsnorm(blk["ln1"], x, c.norm_eps))
+    x = x + a
+    f, aux = _ffn(c, blk, L.rmsnorm(blk["ln2"], x, c.norm_eps))
+    return x + f, kv, aux
+
+
+def forward(c: LMConfig, params, tokens):
+    """tokens [B,S] -> (hidden [B,S,D], aux loss)."""
+    x = _embed(params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(c.n_layers):
+        x, _kv, a_aux = _block(c, index_tree(params["blocks"], layer), x)
+        aux = aux + a_aux
+    return L.rmsnorm(params["ln_f"], x, c.norm_eps), aux
+
+
+def logits_fn(c: LMConfig, params, hidden):
+    out = torch.einsum("bsd,dv->bsv", hidden, params["head"].to(hidden.dtype))
+    return shard(out, "batch", None, "vocab")
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with stacked KV cache
+# ---------------------------------------------------------------------------
+
+
+def _cache_shape(c: LMConfig, batch: int, max_len: int) -> tuple[int, ...]:
+    return (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
+
+
+def make_cache(c: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               device: torch.device | str = "cuda") -> dict:
+    device = resolve_device(device)
+    shape = _cache_shape(c, batch, max_len)
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if c.kv_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            "len": length,
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": length,
+    }
+
+
+def cache_specs(c: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    shape = _cache_shape(c, batch, max_len)
+    axes = ("layers", "batch", c.kv_seq_axis, "kv_heads", "head_dim")
+    if c.kv_quant:
+        return {
+            "k": spec(shape, axes, dtype=torch.int8, init="zeros"),
+            "v": spec(shape, axes, dtype=torch.int8, init="zeros"),
+            "k_scale": spec(shape[:-1], axes[:-1], dtype=torch.float32, init="ones"),
+            "v_scale": spec(shape[:-1], axes[:-1], dtype=torch.float32, init="ones"),
+            "len": spec((), (), dtype=torch.int32, init="zeros"),
+        }
+    return {
+        "k": spec(shape, axes, dtype=dtype, init="zeros"),
+        "v": spec(shape, axes, dtype=dtype, init="zeros"),
+        "len": spec((), (), dtype=torch.int32, init="zeros"),
+    }
+
+
+@torch.no_grad()
+def prefill(c: LMConfig, params, tokens, max_len: int | None = None):
+    """Full forward over the prompt; returns (last-token logits [B,1,V], cache).
+
+    The cache is allocated at ``max_len`` (default S) and each layer's K/V
+    written into it as the layer runs, so no stacked copy is made; positions
+    past S stay zero (int8: 0 with scale 1), as the reference's padding."""
+    B, S = tokens.shape
+    max_len = max_len or S
+    x = _embed(params, tokens)
+    cache = make_cache(c, B, max_len, x.dtype, device=x.device)  # bf16, the embedding's cast
+    for layer in range(c.n_layers):
+        x, (k, v), _ = _block(c, index_tree(params["blocks"], layer), x)
+        if c.kv_quant:
+            (cache["k"][layer, :, :S], cache["k_scale"][layer, :, :S]) = L.quantize_kv(k)
+            (cache["v"][layer, :, :S], cache["v_scale"][layer, :, :S]) = L.quantize_kv(v)
+        else:
+            cache["k"][layer, :, :S] = k
+            cache["v"][layer, :, :S] = v
+    x = L.rmsnorm(params["ln_f"], x[:, -1:, :], c.norm_eps)
+    cache["len"].fill_(S)
+    return logits_fn(c, params, x), cache
+
+
+@torch.no_grad()
+def decode_step(c: LMConfig, params, token, cache):
+    """token [B,1] int; cache from make_cache/prefill.  Returns (logits
+    [B,1,V], cache): the cache's tensors are updated in place (the reference
+    donates them) and the returned dict holds them with ``len`` + 1."""
+    x = _embed(params, token)
+    quant = c.kv_quant
+    for layer in range(c.n_layers):
+        blk = index_tree(params["blocks"], layer)
+        h = L.rmsnorm(blk["ln1"], x, c.norm_eps)
+        scales = {"k_scale": cache["k_scale"][layer], "v_scale": cache["v_scale"][layer]} if quant else {}
+        a = L.attention_decode(c.attn_cfg(), blk["attn"], h, cache["k"][layer], cache["v"][layer], cache["len"],
+                               kv_seq_axis=c.kv_seq_axis, **scales)[0]
+        x = x + a
+        f, _ = _ffn(c, blk, L.rmsnorm(blk["ln2"], x, c.norm_eps))
+        x = x + f
+    x = L.rmsnorm(params["ln_f"], x, c.norm_eps)
+    return logits_fn(c, params, x), {**cache, "len": cache["len"] + 1}

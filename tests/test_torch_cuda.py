@@ -17,6 +17,10 @@ Tolerances and why:
   * the smoke ViT through the kernel against the same forward with the plain
     attention: logits within 2% of the logit scale (the kernel keeps q.k in
     f32 where the plain version rounds it to bf16);
+  * the smoke LMs' prefill cells through the kernel against the same cell
+    with the plain attention (an MoE's expert picks pinned), and a decode
+    cell against a prefill of the same tokens: logits within 2% of the logit
+    scale, top-1 equal or a tie (chip_smoke's lm_full rule);
   * the ``jax_*`` planners' float32 DPs (``core/jax_sched``) on the card
     against the same call on the CPU: exact.  Every op rounds as IEEE
     float32/float64 on both (scalars are device tensors, fused roundings
@@ -35,6 +39,7 @@ Tolerances and why:
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -55,8 +60,11 @@ from chip_smoke import (  # noqa: E402
     GEMM_SHAPES,
     MISALIGNED,
     SWEEP_PARAMS,
+    LM_LOGIT_RTOL,
     at_offset,
     batch_scenarios,
+    compare_logits,
+    expert_picks,
     fleet_scenarios,
     fleet_spec,
     full_grids,
@@ -64,6 +72,7 @@ from chip_smoke import (  # noqa: E402
     own_fan_in,
     record_gemms,
     stats_rows,
+    upcast_attention,
     ZOO_GEMMS,
 )
 
@@ -73,7 +82,9 @@ from repro_torch.core import compile_cache, jax_sched, profiles, sim_batch, sim_
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
-from repro_torch.models import common
+from repro_torch.launch import steps
+from repro_torch.models import common, lm
+from repro_torch.models import layers as L
 from repro_torch.models.common import init_tree, matmul_backend
 
 SHAPES = GEMM_SHAPES  # tests/test_kernels.py's, then the split-K, narrow-load and large-M shapes
@@ -469,3 +480,40 @@ def test_fleet_rounds_never_wait_for_the_card(cuda_device, name, monkeypatch):
     sim_multi_batch.simulate_multi_batch(name, models, scens[:20], device=cuda_device, groups=groups)
     assert len(issued) == 2 * len(groups)
     assert all(g["host_reads"] == g["rounds"] + 1 and g["drain_replays"] >= 0 for g in groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "command-r-35b", "qwen2-moe-a2.7b", "deepseek-moe-16b"])
+def test_lm_smoke_cells_on_card(cuda_device, name, monkeypatch):
+    base = configs.get(name, smoke=True)
+    arch = dataclasses.replace(base, shapes=(A.ShapeSpec("p", "prefill", 2, seq=40), A.ShapeSpec("d", "decode", 2, seq=64)))
+    prefill, decode = steps.build_cell(arch, "p"), steps.build_cell(arch, "d")
+    params = own_fan_in(prefill.init_arg(0, 0, cuda_device), arch.cfg)
+    batch = A.make_inputs(arch, arch.shape("p"), 1, device=cuda_device)
+    picks = []
+    before = flash_ops.flash_attention.launches
+    with expert_picks(L, picks):
+        logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches - before == arch.cfg.n_layers
+    assert int(cache["len"]) == 40 and cache["k"].device.type == "cuda"
+    with monkeypatch.context() as m, expert_picks(L, picks, replay=True):
+        m.setattr(flash_ops, "attention", lambda q, k, v, *, causal=True, **_: upcast_attention(
+            torch, flash_ref, q, k, v, causal=causal))
+        plain, _ = prefill(params, batch)
+    c = compare_logits(logits, plain)
+    assert c["rel"] <= LM_LOGIT_RTOL and c["top1_ok"], c
+    tokens = batch["tokens"][:, :12]
+    cache = decode.init_arg(1, 0, cuda_device)
+    picks = []
+    with expert_picks(L, picks):
+        for s in range(12):
+            step_logits, cache = decode(params, cache, {"token": tokens[:, s:s + 1]})
+    cfg = arch.cfg
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    by_layer = [torch.cat(picks[layer::cfg.n_layers], dim=1) for layer in range(cfg.n_layers)] if cfg.moe else []
+    with expert_picks(L, by_layer, replay=True):
+        prefilled, _ = lm.prefill(cfg, params, tokens)
+    c = compare_logits(step_logits, prefilled)
+    assert c["rel"] <= LM_LOGIT_RTOL and c["top1_ok"], c

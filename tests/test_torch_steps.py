@@ -1,0 +1,181 @@
+"""The port's step builder (``launch/steps.build_cell``) against the
+reference's, on the CPU: prefill and decode cells of the four LMs' smoke
+configs, classify_serve cells of the five classifiers, and the argument
+specs of every full config's serving cells (sized, never allocated).
+
+Tolerances and why:
+  * cache lengths, names, kinds, donated arguments and argument shapes and
+    dtypes: exactly equal;
+  * logits: both packages run the cells as built, in bf16 (serving params
+    are drawn or cast to bf16), so they agree within ``LOGIT_RTOL`` = 2% of
+    max|logit|, the ViT and Swin tests' rule, on weights whose attention
+    matrices have their own fan-in (``chip_smoke.own_fan_in``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+from test_torch_ref import CPU, reference_params  # installs the jax 0.9 shims first
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.arch import ShapeSpec as JShapeSpec
+from repro.launch import steps as jsteps
+from repro_torch import arch as A
+from repro_torch import configs, interop
+from repro_torch.launch import steps
+from repro_torch.models import common
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke.py, at the repo root
+from chip_smoke import own_fan_in  # noqa: E402
+
+LOGIT_RTOL = 0.02
+LMS = ("qwen3-0.6b", "command-r-35b", "qwen2-moe-a2.7b", "deepseek-moe-16b")
+CLASSIFIERS = ("resnet-50", "squeezenet", "vit-s16", "efficientnet-b7", "swin-b")
+SMALL = (("prefill_s", "prefill", 2, 12, 0), ("decode_s", "decode", 2, 16, 0), ("serve_s", "classify_serve", 4, 0, 32))
+
+
+def _small(arch, shape_cls):
+    return dataclasses.replace(arch, shapes=tuple(shape_cls(n, k, batch=b, seq=s, img=i) for n, k, b, s, i in SMALL))
+
+
+def _cells(name: str, shape: str, seed: int):
+    """(reference program, bf16 params as jnp, state, port program, bf16
+    params, state) on the smoke config's numpy weights, carried across."""
+    arch_j, params_j, state_j = reference_params(name, seed)
+    arch = configs.get(name, smoke=True)
+    if arch.family in ("lm", "vit", "swin"):
+        own_fan_in(params_j, arch.cfg)
+    prog_j = jsteps.build_cell(_small(arch_j, JShapeSpec), shape)
+    prog = steps.build_cell(_small(arch, A.ShapeSpec), shape)
+    assert (prog.name, prog.kind, prog.donate) == (prog_j.name, prog_j.kind, prog_j.donate)
+    params, state = interop.from_jax(arch, params_j, state_j, device=CPU)
+    params = common.tree_map(lambda t: t.to(torch.bfloat16), params)
+    pj = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params_j)
+    return prog_j, pj, jax.tree.map(jnp.asarray, state_j), prog, params, state
+
+
+def _close(got: torch.Tensor, want) -> float:
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert err <= LOGIT_RTOL * scale, (err, scale)
+    return err / scale
+
+
+@pytest.mark.parametrize("name", LMS)
+def test_prefill_cell_matches_reference(name):
+    prog_j, pj, _, prog, params, _ = _cells(name, "prefill_s", 11)
+    batch = A.make_inputs(prog.meta["arch"], prog.meta["shape"], 3, device=CPU)
+    lj, cj = jax.jit(prog_j.fn)(pj, {"tokens": jnp.asarray(batch["tokens"].numpy())})
+    lt, ct = prog(params, batch)
+    _close(lt, lj)
+    assert int(ct["len"]) == int(cj["len"]) == 12
+    for key in ("k", "v"):
+        assert tuple(ct[key].shape) == cj[key].shape and ct[key].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", LMS)
+def test_decode_cell_matches_reference(name):
+    """Three decode steps from the cell's own (empty) cache; the port's cache
+    is updated in place (argument 1 is donated)."""
+    prog_j, pj, _, prog, params, _ = _cells(name, "decode_s", 12)
+    cache_j = jax.tree.map(jnp.zeros_like, prog_j.abstract_args()[1])
+    cache = prog.init_arg(1, 0, CPU)
+    k = cache["k"]
+    tokens = np.random.default_rng(4).integers(0, prog.meta["arch"].cfg.vocab, (3, 2, 1)).astype(np.int32)
+    step = jax.jit(prog_j.fn)
+    for tok in tokens:
+        lj, cache_j = step(pj, cache_j, {"token": jnp.asarray(tok)})
+        lt, cache = prog(params, cache, {"token": torch.tensor(tok)})
+        _close(lt, lj)
+    assert cache["k"] is k and int(cache["len"]) == int(cache_j["len"]) == 3
+
+
+@pytest.mark.parametrize("name", CLASSIFIERS)
+def test_classify_serve_cell_matches_reference(name):
+    prog_j, pj, sj, prog, params, state = _cells(name, "serve_s", 13)
+    images = np.random.default_rng(5).standard_normal((4, 32, 32, 3)).astype(np.float32)
+    want = jax.jit(prog_j.fn)(pj, sj, {"images": jnp.asarray(images)})
+    got = prog(params, state, {"images": torch.tensor(images)})
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
+def _reference_layout(spec, shape: tuple) -> tuple:
+    """A port shape in the reference's layout: conv weights OIHW -> HWIO."""
+    if spec.init != "conv":
+        return shape
+    *lead, o, i, kh, kw = shape
+    return (*lead, kh, kw, i, o)
+
+
+@pytest.mark.parametrize("name", LMS + CLASSIFIERS)
+def test_full_config_cells_sized_like_reference(name):
+    """Every serving cell of the full config: the same argument shapes and
+    dtypes as the reference's, from specs alone (meta tensors); floating
+    params in bf16, BatchNorm state in f32."""
+    arch, arch_j = configs.get(name), jconfigs.get(name)
+    for shape in arch_j.shapes:
+        if shape.kind not in ("prefill", "decode", "classify_serve"):
+            continue
+        prog, prog_j = steps.build_cell(arch, shape.name), jsteps.build_cell(arch_j, shape.name)
+        assert (prog.name, prog.kind, prog.donate) == (prog_j.name, prog_j.kind, prog_j.donate)
+        want = [jax.tree.leaves(a) for a in prog_j.abstract_args()]
+        for specs, w_arg in zip(prog.arg_specs, want, strict=True):
+            g_arg = common.tree_leaves(common.abstract_tree(specs))
+            assert all(t.device.type == "meta" for t in g_arg)
+            assert [(_reference_layout(s, tuple(t.shape)), str(t.dtype).removeprefix("torch."))
+                    for s, t in zip(common.tree_leaves(specs), g_arg)] == [(tuple(s.shape), str(s.dtype)) for s in w_arg]
+
+
+def test_shape_overrides():
+    lm_cell = steps.build_cell(configs.get("qwen3-0.6b"), "long_500k")
+    assert lm_cell.meta["arch"].cfg.kv_seq_axis == "long_kv_seq"
+    assert lm_cell.arg_specs[1]["k"].axes[2] == "long_kv_seq" and lm_cell.arg_specs[1]["k"].shape[2] == 524288
+    assert steps.build_cell(configs.get("qwen3-0.6b"), "decode_32k").meta["arch"].cfg.kv_seq_axis == "kv_seq"
+    serve_384 = A.ShapeSpec("serve_384", "classify_serve", 1, img=384)
+    for name, want in (("vit-s16", {"img_res": 384}), ("swin-b", {"img_res": 384, "window": 12})):
+        arch = configs.get(name)
+        cfg = steps._shape_cfg(arch, serve_384).cfg
+        assert {k: getattr(cfg, k) for k in want} == want
+
+
+@pytest.mark.parametrize("name,shape", [("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
+                                        ("vit-s16", "cls_224"), ("resnet-50", "cls_384")])
+def test_training_kinds_raise(name, shape):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        steps.build_cell(configs.get(name), shape)
+
+
+def test_unported_families_and_rules_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        steps.build_cell(configs.get("qwen3-0.6b"), "prefill_32k", rules=object())
+    dit = A.Arch("dit-xl2", "dit", None, shapes=(A.ShapeSpec("gen_fast", "denoise_step", 16, img=512),))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        steps.build_cell(dit, "gen_fast")
+    for fn in (A.abstract_params, lambda a: A.input_specs(a, a.shapes[0])):
+        with pytest.raises(ValueError, match="ROADMAP item 9"):
+            fn(dit)
+    with pytest.raises(KeyError):
+        configs.get("dit-xl2")
+
+
+def test_init_args_on_the_card_by_default(monkeypatch):
+    prog = steps.build_cell(_small(configs.get("qwen3-0.6b", smoke=True), A.ShapeSpec), "decode_s")
+    params, cache, batch = prog.init_args(5, CPU)
+    for a, b in zip(common.tree_leaves(prog.init_arg(0, 5, CPU)), common.tree_leaves(params)):
+        assert torch.equal(a, b)
+    assert all(t.dtype == torch.bfloat16 for t in common.tree_leaves(params))
+    assert cache["k"].shape == (2, 2, 16, 2, 16) and cache["len"].dtype == torch.int32 and int(cache["len"]) == 0
+    assert batch["token"].shape == (2, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        prog.init_args(5)
