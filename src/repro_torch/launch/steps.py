@@ -1,7 +1,8 @@
 """Build step programs per (arch x shape) cell — the serving kinds.
 
 ``build_cell(arch, shape_name)`` returns a CellProgram with:
-  fn          the step callable (prefill / decode / classify_serve)
+  fn          the step callable (prefill / decode / denoise_step /
+              classify_serve)
   arg_specs   ParamSpec trees of its arguments (``common.abstract_tree``
               sizes them without allocating)
   donate      argument indices the step updates in place (the KV cache)
@@ -11,8 +12,11 @@
 bf16 from the cast specs, a leaf at a time: no full f32 tree is ever made
 (command-r's would be 130 GB).
 
-The training kinds and ``denoise_step`` are not ported yet (ROADMAP item
-9); mesh rules wait for the multi-device path (item 8).  Both raise.
+A ``denoise_step`` cell runs one sampler step of DiT (DDIM, cosine
+schedule) or Flux (rectified-flow Euler) on ``{"x", "t", "dt", ...}``.
+The training kinds (``train``, ``denoise_train``, ``classify_train``) are
+not ported yet (ROADMAP item 9); mesh rules wait for the multi-device path
+(item 8).  Both raise.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from .. import arch as A
 from ..device import resolve_device
-from ..models import lm
+from ..models import diffusion, lm
 from ..models.common import ParamSpec, init_tree, tree_map
 
 _TRAIN_KINDS = ("train", "denoise_train", "classify_train")
@@ -80,7 +84,7 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None) -> CellProgram:
     if rules is not None:
         raise NotImplementedError("mesh rules are not ported: the port runs on one card (ROADMAP item 8)")
     shape = arch.shape(shape_name)
-    if shape.kind in _TRAIN_KINDS or shape.kind == "denoise_step":
+    if shape.kind in _TRAIN_KINDS:
         raise NotImplementedError(f"{arch.name}/{shape.name}: the {shape.kind!r} step is not ported (ROADMAP item 9)")
     arch = _shape_cfg(arch, shape)
     cfg = arch.cfg
@@ -104,6 +108,20 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None) -> CellProgram:
             return lm.decode_step(cfg, params, batch["token"], cache)
 
         return CellProgram(name, shape.kind, decode_fn, (serve_params, cache, in_specs), donate=(1,), meta=meta)
+
+    if shape.kind == "denoise_step":
+        if arch.family == "dit":
+
+            def step_fn(params, batch):
+                return diffusion.dit_sample_step(cfg, params, batch["x"], batch["t"], batch["dt"], batch["y"])
+
+        else:
+
+            def step_fn(params, batch):
+                return diffusion.flux_sample_step(cfg, params, batch["x"], batch["txt"], batch["vec"], batch["t"],
+                                                  batch["dt"], batch["guidance"])
+
+        return CellProgram(name, shape.kind, step_fn, (serve_params, in_specs), meta=meta)
 
     if shape.kind == "classify_serve":
         serve_state = _cast_specs(state_specs, torch.float32)

@@ -1,18 +1,20 @@
-"""Shared transformer layers: norms, RoPE, GQA attention (prefill and
-one-token decode against a KV cache, bf16 or int8), the GELU and SwiGLU MLPs
-and the capacity-dispatched MoE — what ViT and the decoder LMs need of the
-reference's ``models/layers.py``.
+"""Shared transformer layers: norms, adaLN modulation, RoPE, GQA attention
+(prefill and one-token decode against a KV cache, bf16 or int8), the GELU
+and SwiGLU MLPs and the capacity-dispatched MoE — what ViT, the decoder LMs
+and the diffusion backbones need of the reference's ``models/layers.py``.
 
 Everything is a plain function over (cfg-like args, params dict, inputs);
 each layer's parameter layout comes from its ``*_specs()`` helper, key for
 key the reference's, so ``interop.from_jax`` carries weights across unchanged.
 
-``attention`` runs the flash kernel (``kernels/flash_attention``) whenever
-no autograd graph is needed and no explicit mask is given: the CUDA kernel
-on the card, its plain version on the CPU.  The TPU kernel is forward-only,
-so a forward that must be differentiated takes the reference's own jnp
-branches (``blockwise_sdpa`` above ``BLOCKWISE_THRESHOLD``, else ``_sdpa``),
-as the reference's models do for training.
+``_attend`` (called by ``attention`` and by the diffusion models' joint and
+single-stream attention) runs the flash kernel (``kernels/flash_attention``)
+whenever no autograd graph is needed and no explicit mask is given: the
+CUDA kernel on the card, its plain version on the CPU.  The TPU kernel is
+forward-only, so a forward that must be differentiated takes the
+reference's own jnp branches (``blockwise_sdpa`` above
+``BLOCKWISE_THRESHOLD``, else ``_sdpa``), as the reference's models do for
+training.
 
 ``attention_decode`` keeps the reference's own route, ``_sdpa`` over the
 whole cache with a validity mask: the flash kernel takes its lengths from
@@ -59,6 +61,11 @@ def layernorm(params, x, eps: float = 1e-6):
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)).to(x.dtype)
+
+
+def modulate(x, shift, scale):
+    """adaLN modulation (DiT): x [B,S,D], shift/scale [B,D]."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -153,21 +160,29 @@ def _sdpa(c: AttnCfg, q, k, v, mask=None):
 BLOCKWISE_THRESHOLD = 4096
 
 
+def _attend(c: AttnCfg, q, k, v, mask=None):
+    """softmax(q·kᵀ/√hd, mask)·v, q [B,S,H,hd], k/v [B,T,KH,hd] -> [B,S,H,hd].
+    The flash kernel where no mask is given and no autograd graph is
+    needed (reached through the module attribute ``flash_ops.attention``);
+    otherwise the reference's branches."""
+    S = q.shape[1]
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if mask is None and not needs_grad:
+        return flash_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=c.causal)
+    if S > BLOCKWISE_THRESHOLD and mask is None:
+        return blockwise_sdpa(q, k, v, causal=c.causal)
+    if c.causal and mask is None:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()[None, None, None]
+    return _sdpa(c, q, k, v, mask)
+
+
 def attention(c: AttnCfg, p, x, *, positions=None, mask=None):
     """Full (training/prefill) attention. x: [B,S,D] -> (y [B,S,D], (k, v))."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(c, p, x, positions)
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if mask is None and not needs_grad:
-        out = flash_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=c.causal)
-    elif S > BLOCKWISE_THRESHOLD and mask is None:
-        out = blockwise_sdpa(q, k, v, causal=c.causal)
-    else:
-        if c.causal and mask is None:
-            mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()[None, None, None]
-        out = _sdpa(c, q, k, v, mask)
+    out = _attend(c, q, k, v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     if c.bias:
         y = y + p["bo"].to(x.dtype)

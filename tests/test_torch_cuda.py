@@ -21,6 +21,10 @@ Tolerances and why:
     with the plain attention (an MoE's expert picks pinned), and a decode
     cell against a prefill of the same tokens: logits within 2% of the logit
     scale, top-1 equal or a tie (chip_smoke's lm_full rule);
+  * the smoke DiT and Flux denoise_step cells (non-zero modulation): the
+    prediction through the kernel against the same forward with the plain
+    attention on f32-upcast q, k, v, within 2% of max|prediction|, one
+    launch an attention layer;
   * the ``jax_*`` planners' float32 DPs (``core/jax_sched``) on the card
     against the same call on the CPU: exact.  Every op rounds as IEEE
     float32/float64 on both (scalars are device tensors, fused roundings
@@ -62,6 +66,9 @@ from chip_smoke import (  # noqa: E402
     SWEEP_PARAMS,
     LM_LOGIT_RTOL,
     at_offset,
+    attention_layers,
+    draw_zero_leaves,
+    prediction,
     batch_scenarios,
     compare_logits,
     expert_picks,
@@ -83,7 +90,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
 from repro_torch.launch import steps
-from repro_torch.models import common, lm
+from repro_torch.models import common, diffusion, lm
 from repro_torch.models import layers as L
 from repro_torch.models.common import init_tree, matmul_backend
 
@@ -517,3 +524,26 @@ def test_lm_smoke_cells_on_card(cuda_device, name, monkeypatch):
         prefilled, _ = lm.prefill(cfg, params, tokens)
     c = compare_logits(step_logits, prefilled)
     assert c["rel"] <= LM_LOGIT_RTOL and c["top1_ok"], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dit-xl2", "flux-dev"])
+def test_diffusion_smoke_cells_on_card(cuda_device, name, monkeypatch):
+    base = configs.get(name, smoke=True)
+    arch = dataclasses.replace(base, shapes=(A.ShapeSpec("g", "denoise_step", 3, img=128, steps=4),))
+    cell = steps.build_cell(arch, "g")
+    params = own_fan_in(cell.init_arg(0, 0, cuda_device), arch.cfg)
+    draw_zero_leaves(common, params, cell.arg_specs[0], torch.Generator(device=cuda_device).manual_seed(1))
+    batch = A.make_inputs(arch, arch.shape("g"), 1, device=cuda_device)
+    before = flash_ops.flash_attention.launches
+    pred = prediction(torch, diffusion, arch, params, batch)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches - before == attention_layers(arch.cfg)
+    with monkeypatch.context() as m:
+        m.setattr(flash_ops, "attention", lambda q, k, v, *, causal=True, **_: upcast_attention(
+            torch, flash_ref, q, k, v, causal=causal))
+        plain = prediction(torch, diffusion, arch, params, batch)
+    scale = float(plain.abs().max())
+    assert scale > 0 and float((pred - plain).abs().max()) <= LM_LOGIT_RTOL * scale
+    out = cell(params, batch)
+    assert out.shape == batch["x"].shape and bool(torch.isfinite(out).all())

@@ -86,20 +86,33 @@ def _logits(*rows):
     return torch.tensor(rows, dtype=torch.float32)[:, None, :]
 
 
-@pytest.mark.parametrize("got,want,same,ok", [
+@pytest.mark.parametrize("got,want,noise,same,ok", [
     # equal picks
-    (_logits([1.0, 3.0, 2.0]), _logits([1.0, 3.0, 2.0]), 1, True),
+    (_logits([1.0, 3.0, 2.0]), _logits([1.0, 3.0, 2.0]), 0.0, 1, True),
     # another pick where the reference's top two lie 1.0 (64 bf16 ulps at 3.0) apart
-    (_logits([1.0, 3.0, 3.05]), _logits([1.0, 3.0, 2.0]), 0, False),
+    (_logits([1.0, 3.0, 3.05]), _logits([1.0, 3.0, 2.0]), 0.0, 0, False),
     # another pick where they lie one ulp (2^-6 at 3.0) apart: a tie
-    (_logits([1.0, 2.98, 3.0]), _logits([1.0, 3.0, 3.0 - 2**-6]), 0, True),
+    (_logits([1.0, 2.98, 3.0]), _logits([1.0, 3.0, 3.0 - 2**-6]), 0.0, 0, True),
     # three ulps apart: not a tie, however small the error
-    (_logits([1.0, 3.0 - 2**-6, 3.0]), _logits([1.0, 3.0, 3.0 - 3 * 2**-6]), 0, False),
+    (_logits([1.0, 3.0 - 2**-6, 3.0]), _logits([1.0, 3.0, 3.0 - 3 * 2**-6]), 0.0, 0, False),
     # a tie beside a row decided wrongly: the wrong row fails the whole
-    (_logits([1.0, 2.98, 3.0], [0.0, 1.0, 5.1]), _logits([1.0, 3.0, 3.0 - 2**-6], [0.0, 5.0, 1.0]), 0, False),
+    (_logits([1.0, 2.98, 3.0], [0.0, 1.0, 5.1]), _logits([1.0, 3.0, 3.0 - 2**-6], [0.0, 5.0, 1.0]), 0.0, 0, False),
+    # three ulps apart, where two sound computations lie 0.05 apart: a tie (2 x 0.05 > 3 ulps)
+    (_logits([1.0, 3.0 - 2**-6, 3.0]), _logits([1.0, 3.0, 3.0 - 3 * 2**-6]), 0.05, 0, True),
+    # 1.0 apart: a tie only where the sound noise is at least half of it
+    (_logits([1.0, 3.0, 3.05]), _logits([1.0, 3.0, 2.0]), 0.4, 0, False),
+    (_logits([1.0, 3.0, 3.05]), _logits([1.0, 3.0, 2.0]), 0.5, 0, True),
+    # a row whose top two tie, where the token picked lies far below them: not a tie
+    (_logits([5.0, 3.0, 2.0]), _logits([1.0, 3.0, 3.0 - 2**-6]), 0.0, 0, False),
+    (_logits([5.0, 3.0, 2.0]), _logits([1.0, 3.0, 2.9]), 0.1, 0, False),
+    # within the noise band it is the token picked that counts, not the reference's second
+    (_logits([1.0, 3.0, 2.0, 3.1]), _logits([1.0, 3.0, 2.95, 2.5]), 0.1, 0, False),
+    (_logits([1.0, 3.0, 3.1, 2.0]), _logits([1.0, 3.0, 2.95, 2.5]), 0.1, 0, True),
 ])
-def test_compare_logits_top1_rule(got, want, same, ok):
-    c = chip_smoke.compare_logits(got, want)
+def test_compare_logits_top1_rule(got, want, noise, same, ok):
+    c = chip_smoke.compare_logits(got, want, noise=noise)
     assert (c["same"], c["rows"], c["top1_ok"]) == (same, got.shape[0], ok)
     assert c["err"] == pytest.approx(float((got - want).abs().max()))
     assert c["rel"] == pytest.approx(c["err"] / float(want.abs().max()))
+    picked = want.gather(-1, got.argmax(-1, keepdim=True))[..., 0]
+    assert c["short"] == pytest.approx(float((want.max(-1).values - picked).max()))

@@ -1,15 +1,18 @@
 """The port's step builder (``launch/steps.build_cell``) against the
 reference's, on the CPU: prefill and decode cells of the four LMs' smoke
-configs, classify_serve cells of the five classifiers, and the argument
-specs of every full config's serving cells (sized, never allocated).
+configs, denoise_step cells of DiT and Flux, classify_serve cells of the
+five classifiers, and the argument specs of every full config's serving
+cells (sized, never allocated).
 
 Tolerances and why:
   * cache lengths, names, kinds, donated arguments and argument shapes and
     dtypes: exactly equal;
-  * logits: both packages run the cells as built, in bf16 (serving params
-    are drawn or cast to bf16), so they agree within ``LOGIT_RTOL`` = 2% of
-    max|logit|, the ViT and Swin tests' rule, on weights whose attention
-    matrices have their own fan-in (``chip_smoke.own_fan_in``).
+  * logits and denoised latents: both packages run the cells as built, in
+    bf16 (serving params are drawn or cast to bf16), so they agree within
+    ``LOGIT_RTOL`` = 2% of max|out|, the ViT and Swin tests' rule, on
+    weights whose attention matrices have their own fan-in
+    (``chip_smoke.own_fan_in``); a denoise step's change ``out - x`` is
+    held to the same rule, since ``x`` alone would dominate ``out``.
 """
 from __future__ import annotations
 
@@ -38,8 +41,11 @@ from chip_smoke import own_fan_in  # noqa: E402
 
 LOGIT_RTOL = 0.02
 LMS = ("qwen3-0.6b", "command-r-35b", "qwen2-moe-a2.7b", "deepseek-moe-16b")
+DIFFUSION = ("dit-xl2", "flux-dev")
 CLASSIFIERS = ("resnet-50", "squeezenet", "vit-s16", "efficientnet-b7", "swin-b")
-SMALL = (("prefill_s", "prefill", 2, 12, 0), ("decode_s", "decode", 2, 16, 0), ("serve_s", "classify_serve", 4, 0, 32))
+SMALL = (("prefill_s", "prefill", 2, 12, 0), ("decode_s", "decode", 2, 16, 0), ("serve_s", "classify_serve", 4, 0, 32),
+         ("gen_s", "denoise_step", 3, 0, 64))
+SERVING_KINDS = ("prefill", "decode", "denoise_step", "classify_serve")
 
 
 def _small(arch, shape_cls):
@@ -51,7 +57,7 @@ def _cells(name: str, shape: str, seed: int):
     params, state) on the smoke config's numpy weights, carried across."""
     arch_j, params_j, state_j = reference_params(name, seed)
     arch = configs.get(name, smoke=True)
-    if arch.family in ("lm", "vit", "swin"):
+    if arch.family in ("lm", "vit", "swin", "dit", "flux"):
         own_fan_in(params_j, arch.cfg)
     prog_j = jsteps.build_cell(_small(arch_j, JShapeSpec), shape)
     prog = steps.build_cell(_small(arch, A.ShapeSpec), shape)
@@ -99,6 +105,27 @@ def test_decode_cell_matches_reference(name):
     assert cache["k"] is k and int(cache["len"]) == int(cache_j["len"]) == 3
 
 
+@pytest.mark.parametrize("name", DIFFUSION)
+def test_denoise_step_cell_matches_reference(name):
+    """One sampler step of each smoke config on the same numpy inputs
+    (``make_inputs``' rules), on non-zero modulation weights."""
+    prog_j, pj, _, prog, params, _ = _cells(name, "gen_s", 14)
+    cfg = prog.meta["arch"].cfg
+    rng = np.random.default_rng(6)
+    batch = {"x": rng.standard_normal((3, 8, 8, cfg.in_ch)), "t": rng.uniform(0.02, 0.98, 3), "dt": np.full(3, 0.02)}
+    if name == "dit-xl2":
+        batch["y"] = rng.integers(0, cfg.n_classes, 3).astype(np.int32)
+    else:
+        batch |= {"txt": rng.standard_normal((3, cfg.txt_len, cfg.txt_dim)), "vec": rng.standard_normal((3, cfg.vec_dim)),
+                  "guidance": np.full(3, 4.0)}
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in batch.items()}
+    want = jax.jit(prog_j.fn)(pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = prog(params, {k: torch.tensor(v) for k, v in batch.items()})
+    assert got.dtype == torch.float32 and not got.requires_grad
+    _close(got, want)
+    _close(got - torch.tensor(batch["x"]), np.asarray(want) - batch["x"])
+
+
 @pytest.mark.parametrize("name", CLASSIFIERS)
 def test_classify_serve_cell_matches_reference(name):
     prog_j, pj, sj, prog, params, state = _cells(name, "serve_s", 13)
@@ -117,14 +144,14 @@ def _reference_layout(spec, shape: tuple) -> tuple:
     return (*lead, kh, kw, i, o)
 
 
-@pytest.mark.parametrize("name", LMS + CLASSIFIERS)
+@pytest.mark.parametrize("name", LMS + DIFFUSION + CLASSIFIERS)
 def test_full_config_cells_sized_like_reference(name):
     """Every serving cell of the full config: the same argument shapes and
     dtypes as the reference's, from specs alone (meta tensors); floating
     params in bf16, BatchNorm state in f32."""
     arch, arch_j = configs.get(name), jconfigs.get(name)
     for shape in arch_j.shapes:
-        if shape.kind not in ("prefill", "decode", "classify_serve"):
+        if shape.kind not in SERVING_KINDS:
             continue
         prog, prog_j = steps.build_cell(arch, shape.name), jsteps.build_cell(arch_j, shape.name)
         assert (prog.name, prog.kind, prog.donate) == (prog_j.name, prog_j.kind, prog_j.donate)
@@ -149,23 +176,25 @@ def test_shape_overrides():
 
 
 @pytest.mark.parametrize("name,shape", [("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
-                                        ("vit-s16", "cls_224"), ("resnet-50", "cls_384")])
+                                        ("vit-s16", "cls_224"), ("resnet-50", "cls_384"),
+                                        ("dit-xl2", "train_256"), ("flux-dev", "train_1024")])
 def test_training_kinds_raise(name, shape):
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         steps.build_cell(configs.get(name), shape)
 
 
 def test_unported_families_and_rules_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        steps.build_cell(configs.get("qwen3-0.6b"), "prefill_32k", rules=object())
-    dit = A.Arch("dit-xl2", "dit", None, shapes=(A.ShapeSpec("gen_fast", "denoise_step", 16, img=512),))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        steps.build_cell(dit, "gen_fast")
+    """Mesh rules wait for the multi-device path (item 8), for every kind;
+    a family no config registers and an arch no registry holds raise."""
+    for name, shape in (("qwen3-0.6b", "prefill_32k"), ("dit-xl2", "gen_fast"), ("resnet-50", "serve_b1")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+            steps.build_cell(configs.get(name), shape, rules=object())
+    unet = A.Arch("unet", "unet", None, shapes=(A.ShapeSpec("gen_fast", "denoise_step", 16, img=512),))
     for fn in (A.abstract_params, lambda a: A.input_specs(a, a.shapes[0])):
-        with pytest.raises(ValueError, match="ROADMAP item 9"):
-            fn(dit)
+        with pytest.raises(ValueError):
+            fn(unet)
     with pytest.raises(KeyError):
-        configs.get("dit-xl2")
+        configs.get("unet")
 
 
 def test_init_args_on_the_card_by_default(monkeypatch):
