@@ -71,6 +71,20 @@ Phases (each raises on failure, so any failure exits non-zero):
                   attending alone) beyond the limit; ms a step, a gen_1024
                   step profiled, a 4-step gen_fast request served, peak
                   memory
+ 5e. train_full   the training kinds through launch/steps.build_cell with
+                  AdamW and gradient accumulation (TRAIN_CASES: resnet-50,
+                  dit-xl2 and qwen3-0.6b whole, deepseek-moe-16b at 2
+                  layers, flux-dev at 2 + 2 blocks; seed-0 f32 weights on
+                  the card): (a) 4 steps on one batch of the port's
+                  SyntheticStream, the loss finite and falling, ms a step,
+                  tokens or images a second, peak memory, a step of
+                  qwen3-0.6b and dit-xl2 profiled; (b) 2 layers on a short
+                  input, loss and every gradient on the card against the
+                  host CPU in f32 and (but ResNet-50) in bf16, a wrong path
+                  beyond each limit, Flux through blockwise_sdpa; (c) dit-xl2's
+                  accum_steps 4 against 1 on the same batch; (d) restart
+                  through launch.train.main on resnet-50 under
+                  cudnn.deterministic; (e) no launch of either kernel
   6. serving      Session(spec, device="cuda").run_serving() on the default
                   spec of ``python -m repro_torch.launch.serve --frames 64``,
                   then on the same spec with models ({"name": "vit-s16"},
@@ -126,11 +140,11 @@ Phases (each raises on failure, so any failure exits non-zero):
                   CompileCounter: captures, hits, wall seconds, the memory
                   the cached programs hold; results equal in every field
  13. report       wall seconds of every phase, the {"kernels": [...]} line
-                  (both kernels: launches on the main path, 0 in phases
-                  8-12), then the contract's last line
+                  (both kernels: launches on the main path, 0 in train_full
+                  and in phases 8-12), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
-serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
+train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
 while they run, every shape each kernel's wrapper is called at is recorded.
 
 It needs one NVIDIA card and the CUDA toolkit (nvcc), and exits non-zero
@@ -144,6 +158,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -258,6 +273,75 @@ DIFF_SHAPES = ("gen_1024", "gen_fast")
 DIFF_REQUEST = "gen_fast"  # served whole: its `steps` (4) denoising steps from standard normal latents
 DIFF_T0 = 0.98  # the request's first t, going down in equal steps to 0 (DiT divides by cos(pi t / 2))
 DIFF_RTOL = 0.03
+# train_full: the three training kinds through launch/steps.build_cell, seed-0
+# f32 weights drawn on the card (attention matrices at their own fan-in, the
+# diffusion models' zero-init leaves drawn), train state 16 bytes a parameter
+# with its gradients.  (name, shape, depth cut, global batch, accum_steps):
+# the cuts fixed before the first run (PERF.md §4): the three that fit run
+# whole, deepseek-moe-16b at 2 of its 28 layers, flux-dev at 2 + 2 of its
+# 19 + 38 blocks; train_4k's batch 256 -> 8 (qwen3) and 4 (deepseek) and
+# train_1024's 32 -> 4, each at microbatch 1 (accum_steps = batch).  The
+# last entry is the lr: 1e-3, fixed before the first run, except for the
+# diffusion models, where it made DiT-XL/2's loss climb by its 4th step
+# (1.0016 -> 1.1632 from the published init; PERF.md §6): 1e-4 there, DiT's
+# published lr (arXiv:2212.09748 §4).
+TRAIN_CASES = (
+    ("resnet-50", "cls_224", None, 256, 1, 1e-3),
+    ("dit-xl2", "train_256", None, 256, 1, 1e-4),
+    ("qwen3-0.6b", "train_4k", None, 8, 8, 1e-3),
+    ("deepseek-moe-16b", "train_4k", 2, 4, 4, 1e-3),
+    ("flux-dev", "train_1024", (2, 2), 4, 4, 1e-4),
+)
+TRAIN_ADAMW = {"warmup_steps": 1, "total_steps": 100}
+TRAIN_STEPS = 4  # (a): on one repeated batch; the 4th loss below the 1st (tests/test_models.py:77-87)
+TRAIN_PROFILED = ("qwen3-0.6b", "dit-xl2")
+# (b): each case's first microbatch at 2 layers (Flux: 1 double + 1 single
+# block) on the card and on the host CPU: an LM at seq TRAIN_CHECK_SEQ, Flux
+# at TRAIN_CHECK_IMG² (512 tokens with its 256 text tokens), the others at
+# batch 2 at the case's resolution, with the model modules in f32 (in_f32).
+# Flux trains above layers.BLOCKWISE_THRESHOLD (4352 tokens), so its check
+# takes the same differentiated blockwise_sdpa: the threshold is lowered to
+# 0 and the blocks to TRAIN_CHECK_BLOCKS (4 query blocks by 2 key blocks at
+# 512 tokens).
+# Loss: |card - CPU| / |CPU|; gradients: ||card - CPU|| / ||CPU|| over every
+# leaf at once (a leaf whose exact gradient is zero, such as a key bias's,
+# reads noise on both sides).  Fixed limits, from readings on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md §6): sound losses read 0-2.2e-6 and gradients
+# 6.5e-7-1.2e-5, where the wrong paths read 1.2e-3-1.56 and 0.065-0.79.
+# ResNet-50 is apart: its f32 gradient at batch 2 is chaotic (BatchNorm's
+# backward cancels most of its input gradient, layer after layer), so two
+# correct runs lie 1.3-2.1% apart even in f64 (CPU f32 against CPU f64
+# 1.90%, card f64 against CPU f64 1.35%) and its limit is
+# TRAIN_GRAD_RTOL_BN, against 181% for its wrong path.  In bf16, as the
+# models run, the LMs, DiT and Flux are held too, at TRAIN_BF16_LOSS_RTOL and
+# TRAIN_BF16_GRAD_RTOL: sound readings 7.4e-6-1.1e-3 and 0.15-1.9% (MoE
+# routing flips the most), the wrong paths' gradients 9-79% in f32.  The
+# loss limit does not separate qwen3's shifted labels (1.4e-3: on random
+# weights the CE barely depends on the label), so the wrong path must pass
+# the gradient limit.  ResNet-50's bf16 distance is logged only: 111%,
+# against 159% for its wrong path.
+TRAIN_CHECK_SEQ = 512
+TRAIN_CHECK_IMG = 256
+TRAIN_CHECK_BATCH = 2
+TRAIN_CHECK_BLOCKS = {"q_block": 128, "kv_block": 256}
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_GRAD_RTOL_BN = 0.1
+TRAIN_BF16_LOSS_RTOL = 5e-3
+TRAIN_BF16_GRAD_RTOL = 5e-2
+# (c): accum_steps TRAIN_ACCUM against 1 on the same batch, dit-xl2 at
+# train_256, with tests/test_substrate.py:257-280's bounds (loss rel 1e-5,
+# grad_norm rel 5e-2, params within 2.5 lr); the wrong path averages only the
+# first TRAIN_ACCUM - 1 microbatches.
+TRAIN_ACCUM = 4
+TRAIN_ACCUM_LOSS_RTOL = 1e-5
+# (d): restart through launch.train.main on resnet-50 at cls_224 under
+# cudnn.deterministic: TRAIN_RESTART_STEPS straight against half, an async
+# checkpoint, --resume and the rest; the last loss within rel 1e-4
+# (tests/test_substrate.py:100-114).
+TRAIN_RESTART = ("resnet-50", "cls_224")
+TRAIN_RESTART_STEPS = 4
+TRAIN_CKPT = ROOT / "build" / "train_full_ckpt"  # (d)'s checkpoints, removed after
 GEMMS_PER_FORWARD = {"resnet-50": 54, "squeezenet": 26}  # 53 convs + head; 25 convs + classifier conv
 B7, SWIN = "efficientnet-b7", "swin-b"  # zoo_full's classifiers
 # stem + 3 for each of stage 0's four expand-1 blocks + 4 (expand, SE pair,
@@ -341,6 +425,9 @@ REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 
     10: {"bandwidth_mbps": [1.0, 3.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
     100: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [24.0, 30.0]},
 }
+# Policies whose per-point loop runs at 10 points only: the jax_* planners take
+# 0.6-1.9 s a point on the card (phase 8).
+LOOP_AT_10_ONLY = ("jax_accuracy", "jax_utility")
 
 # The online phase: Session.run_sweep(mode="online") through the lane-batched
 # online engine (core/sim_online_batch), held against the reference's numbers
@@ -1274,19 +1361,26 @@ def upcast_attention(torch, flash_ref, q, k, v, *, causal: bool):
     return plain_sdpa(torch, flash_ref, q.float(), k.float(), v.float(), causal=causal).to(q.dtype)
 
 
-def device_profile(torch, fn) -> str:
-    """Device busy ms of one ``fn()`` call under torch.profiler, and the
-    three device ops with the most self time (run once unprofiled first)."""
-    if DEVICE != "cuda":
-        return "not measured (no card)"
+def device_busy(torch, fn, *, warm: bool = True) -> tuple[float, str]:
+    """(device busy ms of one ``fn()`` under torch.profiler, the three device
+    ops with the most self time), run once unprofiled first if ``warm``."""
     from torch.profiler import ProfilerActivity, profile
 
-    timed(torch, fn)
+    if warm:
+        timed(torch, fn)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         timed(torch, fn)
     events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in events[:3])
+    return busy, top
+
+
+def device_profile(torch, fn) -> str:
+    """``device_busy`` of one ``fn()`` call, as a line."""
+    if DEVICE != "cuda":
+        return "not measured (no card)"
+    busy, top = device_busy(torch, fn)
     return f"device busy {busy:.2f} ms; most: {top}"
 
 
@@ -1601,6 +1695,353 @@ def phase_diffusion_full(torch, A, configs, common, steps, diffusion, flash_ops,
             rows["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             log(f"diffusion_full: {name}: peak card memory {rows['peak_gb']:.2f} GB")
     return report
+
+
+# ---------------------------------------------------------------------------
+# 5e. train_full: the training kinds
+# ---------------------------------------------------------------------------
+
+
+def train_arch(configs, name: str, shape_name: str, depth, batch: int):
+    """``name``'s config with its depth cut (an LM's or DiT's layers; Flux's
+    (double, single) blocks; None: whole) and one shape, ``shape_name`` at
+    global batch ``batch``."""
+    arch = configs.get(name)
+    cfg = arch.cfg
+    if isinstance(depth, tuple):
+        cfg = dataclasses.replace(cfg, n_double=depth[0], n_single=depth[1])
+    elif depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    shape = dataclasses.replace(arch.shape(shape_name), batch=batch)
+    return dataclasses.replace(arch, cfg=cfg, shapes=(shape,))
+
+
+def train_weights(torch, common, steps, cell, arch, *, draw_zero: bool = False):
+    """The cell's train state drawn on the card from the seed (f32 params,
+    zero moments, step 0), attention matrices at their own fan-in.  With
+    ``draw_zero`` the diffusion models' zero-init leaves are drawn too (as
+    diffusion_full's), so every gradient is live: for the agreement checks,
+    (b) and (c).  Training (a) starts from the published adaLN-Zero init."""
+    ts = cell.init_arg(0, SEED, DEVICE)
+    if arch.family in ("lm", "dit", "flux"):
+        own_fan_in(ts["params"], arch.cfg)
+    if draw_zero and arch.family in ("dit", "flux"):
+        draw_cut_zero_leaves(torch, common, steps, arch, ts["params"])
+    return ts
+
+
+def draw_cut_zero_leaves(torch, common, steps, arch, params):
+    """``draw_zero_leaves`` on ``params`` of ``arch`` (whose specs come from
+    its training cell), from seed + 1; returns ``params``."""
+    specs = steps.build_cell(arch, arch.shapes[0].name).arg_specs[0]["params"]
+    return draw_zero_leaves(common, params, specs, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+
+
+def train_batch(torch, data, arch, step: int = 0):
+    """Batch ``step`` of the port's SyntheticStream at the arch's shape, on the card."""
+    stream = data.SyntheticStream(data.DataSpec(arch, arch.shapes[0], seed=SEED))
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in stream.batch_at(step).items()}
+
+
+def check_cut(common, arch, params, batch):
+    """(arch, params, batch) of check (b): 2 layers (Flux: 1 double + 1
+    single block) of the case's weights and the first microbatch, short: an
+    LM's first TRAIN_CHECK_SEQ tokens, Flux's top-left TRAIN_CHECK_IMG² of
+    latents, the others' first TRAIN_CHECK_BATCH samples."""
+    cfg, f = arch.cfg, arch.family
+    first = lambda tree, n: common.tree_map(lambda t: t[:n], tree)  # noqa: E731
+    if f == "lm":
+        cfg, params = dataclasses.replace(cfg, n_layers=2), {**params, "blocks": first(params["blocks"], 2)}
+        batch = {k: v[:1, :TRAIN_CHECK_SEQ] for k, v in batch.items()}
+    elif f == "dit":
+        cfg, params = dataclasses.replace(cfg, n_layers=2), {**params, "blocks": first(params["blocks"], 2)}
+        batch = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    elif f == "flux":
+        cfg = dataclasses.replace(cfg, n_double=1, n_single=1)
+        params = {**params, "double": first(params["double"], 1), "single": first(params["single"], 1)}
+        lat = TRAIN_CHECK_IMG // 8
+        batch = {k: v[:1, :lat, :lat] if k in ("x", "noise") else v[:1] for k, v in batch.items()}
+    else:
+        batch = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    shape = dataclasses.replace(arch.shapes[0], batch=len(next(iter(batch.values()))))
+    return dataclasses.replace(arch, cfg=cfg, shapes=(shape,)), params, batch
+
+
+@contextlib.contextmanager
+def train_wrong_path(torch, diffusion, arch, batch):
+    """A wrong training objective, for check (b): an LM's labels shifted by
+    one position, a classifier's by one sample, and the diffusion models'
+    timestep embedding fed t where the model feeds t · 1000.  Yields
+    (description, batch)."""
+    if arch.family == "lm":
+        yield "labels shifted by one position", {**batch, "labels": torch.roll(batch["labels"], 1, dims=1)}
+    elif arch.family in ("dit", "flux"):
+        real = diffusion.timestep_embedding
+        with mock.patch.object(diffusion, "timestep_embedding", lambda t, dim: real(t / 1000.0, dim)):
+            yield "timestep embedding fed t, not t * 1000", batch
+    else:
+        yield "labels shifted by one sample", {**batch, "labels": torch.roll(batch["labels"], 1, dims=0)}
+
+
+def grad_distance(got, want) -> tuple[float, float]:
+    """(||got - want|| / ||want|| over every leaf at once, the largest
+    max|got - want| / max|want| of a leaf), on ``got``'s device (``want``
+    is copied there a leaf at a time)."""
+    num = den = worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        w = w.to(g.device)
+        d = g - w
+        num, den = num + float((d * d).sum()), den + float((w * w).sum())
+        scale = float(w.abs().max())
+        worst = max(worst, float(d.abs().max()) / scale if scale else 0.0)
+    return math.sqrt(num / den), worst
+
+
+class F32Torch:
+    """A stand-in for a model module's ``torch`` whose ``bfloat16`` is
+    float32, so the module's bf16 casts compute in f32 (the ``_F32`` of the
+    port's tests)."""
+
+    def __init__(self, torch):
+        self._torch, self.bfloat16 = torch, torch.float32
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+@contextlib.contextmanager
+def in_f32(torch, modules):
+    """While active, each model module in ``modules`` computes in f32, and
+    the card's f32 matmuls and convolutions do not round to TF32."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with contextlib.ExitStack() as stack:
+            for module in modules:
+                stack.enter_context(mock.patch.object(module, "torch", F32Torch(torch)))
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def bf16_held(arch) -> bool:
+    """Whether check (b) holds ``arch``'s bf16 distance (not the BatchNorm
+    ResNets': chaotic, see TRAIN_GRAD_RTOL_BN)."""
+    return arch.family in ("lm", "dit", "flux")
+
+
+def grad_limit(arch) -> float:
+    """Check (b)'s gradient limit for ``arch`` (TRAIN_GRAD_RTOL_BN for the
+    BatchNorm ResNets)."""
+    return TRAIN_GRAD_RTOL_BN if arch.family == "resnet" else TRAIN_GRAD_RTOL
+
+
+@contextlib.contextmanager
+def blockwise_at_check_size(layers, arch):
+    """For Flux, which trains above ``layers.BLOCKWISE_THRESHOLD``: while
+    active, every differentiated attention takes ``blockwise_sdpa`` at
+    TRAIN_CHECK_BLOCKS, as (a)'s steps take it at its own blocks.  Yields a
+    list that counts its calls (the other families: nothing patched)."""
+    calls = []
+    if arch.family != "flux":
+        yield calls
+        return
+    real = layers.blockwise_sdpa
+
+    def counted(q, k, v, *, causal):
+        calls.append(q.device.type)
+        return real(q, k, v, causal=causal, **TRAIN_CHECK_BLOCKS)
+
+    with mock.patch.object(layers, "BLOCKWISE_THRESHOLD", 0), mock.patch.object(layers, "blockwise_sdpa", counted):
+        yield calls
+
+
+def train_agreement(torch, common, steps, diffusion, layers, f32_modules, arch, params, state, batch) -> dict:
+    """Check (b): the loss and every gradient of ``arch`` (already cut) on
+    the card and on the host CPU from the same weights and batch, with the
+    model modules in f32 (``in_f32``), and the wrong path's on the card
+    against the CPU's; then the same in bf16 as the model runs.  Flux's
+    attention takes ``blockwise_sdpa`` (``blockwise_at_check_size``)."""
+    loss_fn = steps.build_cell(arch, arch.shapes[0].name).meta["loss_fn"]
+    host = lambda tree: common.tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+
+    cpu_params, cpu_state, cpu_batch = host(params), host(state), host(batch)
+
+    def on_both():
+        (cpu_loss, _), cpu_grads = steps.value_and_grad(loss_fn, cpu_params, cpu_state, cpu_batch)
+        (loss, _), grads = steps.value_and_grad(loss_fn, params, state, batch)
+        with train_wrong_path(torch, diffusion, arch, batch) as (what, wrong_batch):
+            (w_loss, _), w_grads = steps.value_and_grad(loss_fn, params, state, wrong_batch)
+        cpu_loss = float(cpu_loss)
+        return {"loss_rel": abs(float(loss) - cpu_loss) / abs(cpu_loss), "grads": grad_distance(grads, cpu_grads),
+                "wrong": what, "wrong_loss_rel": abs(float(w_loss) - cpu_loss) / abs(cpu_loss),
+                "wrong_grad_rel": grad_distance(w_grads, cpu_grads)[0]}
+
+    with blockwise_at_check_size(layers, arch) as blockwise_calls:
+        with in_f32(torch, f32_modules):
+            f32 = on_both()
+        bf16 = on_both()
+    out = {"loss_rel": f32["loss_rel"], "grad_rel": f32["grads"][0], "worst_leaf": f32["grads"][1],
+           "wrong": f32["wrong"], "wrong_loss_rel": f32["wrong_loss_rel"], "wrong_grad_rel": f32["wrong_grad_rel"],
+           "bf16_loss_rel": bf16["loss_rel"], "bf16_grad_rel": bf16["grads"][0],
+           "bf16_wrong_loss_rel": bf16["wrong_loss_rel"], "bf16_wrong_grad_rel": bf16["wrong_grad_rel"],
+           "blockwise_calls": {d: blockwise_calls.count(d) for d in sorted(set(blockwise_calls))}}
+    if arch.family == "flux":  # with the threshold at 0, every differentiated attention is blockwise
+        check(blockwise_calls.count("cpu") > 0 and blockwise_calls.count(DEVICE) > 0,
+              f"{arch.name}: check (b) did not train through blockwise_sdpa: {out['blockwise_calls']}")
+    return out
+
+
+def train_restart(torch, train) -> dict:
+    """Check (d): TRAIN_RESTART through the CLI, ``launch.train.main``, under
+    cudnn.deterministic: TRAIN_RESTART_STEPS straight, then half of them with
+    an async checkpoint at the end, ``--resume`` and the rest."""
+    name, shape = TRAIN_RESTART
+    n = TRAIN_RESTART_STEPS
+    ckpt = TRAIN_CKPT
+    args = ["--arch", name, "--shape", shape, "--total-steps", str(n), "--seed", str(SEED), "--device", DEVICE,
+            "--log-every", "1"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        straight = train.main(args + ["--steps", str(n)])
+        part = train.main(args + ["--steps", str(n // 2), "--ckpt-dir", str(ckpt), "--ckpt-every", str(n // 2)])
+        resumed = train.main(args + ["--steps", str(n), "--ckpt-dir", str(ckpt), "--ckpt-every", "100", "--resume"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(part["steps"] == n // 2 and resumed["steps"] == n - n // 2,
+          f"restart: {part['steps']} + {resumed['steps']} steps, want {n // 2} + {n - n // 2}")
+    rel = abs(resumed["last_loss"] - straight["last_loss"]) / abs(straight["last_loss"])
+    return {"straight": straight["last_loss"], "resumed": resumed["last_loss"], "rel": rel,
+            "bitwise": resumed["last_loss"] == straight["last_loss"]}
+
+
+def phase_train_full(torch, configs, common, steps, diffusion, layers, data, optim, train, f32_modules) -> dict:
+    """The training kinds through ``launch/steps.build_cell`` at TRAIN_CASES
+    (seed-0 f32 weights on the card, attention matrices at their own fan-in;
+    the diffusion models' zero-init leaves drawn for (b) and (c) only).  Per
+    case: (a) TRAIN_STEPS steps on one repeated
+    batch of the port's SyntheticStream, the loss finite and falling; ms a
+    step (host clock to the loss's read, median of steps 2-4), tokens or
+    images a second, peak memory; (b) the loss and gradients of 2 layers on a
+    short input, card against host CPU in f32 (``f32_modules``: the model
+    modules), within TRAIN_LOSS_RTOL / ``grad_limit``, the wrong path
+    beyond, and in bf16 within TRAIN_BF16_*_RTOL (the LMs, DiT and Flux;
+    Flux through blockwise_sdpa); a fifth step of each of
+    TRAIN_PROFILED profiled.
+    Then (c) gradient accumulation on dit-xl2 and (d) the CLI's restart.
+    Returns the report."""
+    report = {}
+    for name, shape_name, depth, batch_size, accum, lr in TRAIN_CASES:
+        adamw = optim.AdamWConfig(lr=lr, **TRAIN_ADAMW)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        arch = train_arch(configs, name, shape_name, depth, batch_size)
+        shape = arch.shapes[0]
+        cell = steps.build_cell(arch, shape_name, adamw=adamw, accum_steps=accum)
+        (ts, draw_s) = timed(torch, lambda: train_weights(torch, common, steps, cell, arch))
+        n = common.param_count(cell.arg_specs[0]["params"])
+        batch = train_batch(torch, data, arch)
+        log(f"train_full: {name} at {shape_name} ({'whole' if depth is None else f'depth cut to {depth}'}, "
+            f"{n} params, train state {16 * n / 1e9:.2f} GB with its gradients; global batch {batch_size}, "
+            f"accum_steps {accum}; drawn on the card in {draw_s:.2f} s)")
+        losses, times = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            ts, metrics = cell(ts, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"{name}: losses {losses} not finite or not falling")
+        ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+        per_s = batch_size * (shape.seq or 1) / ms * 1e3
+        unit = "tokens/s" if arch.family == "lm" else "images/s"
+        row = report[name] = {"shape": shape_name, "depth": depth, "batch": batch_size, "accum": accum, "params": n,
+                              "losses": losses, "ms": ms, "per_s": per_s, "unit": unit}
+        log(f"train_full: {name} (a) losses {', '.join(f'{x:.5g}' for x in losses)} over {TRAIN_STEPS} steps on one "
+            f"batch (lr {adamw.lr}); {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}, host clock to the loss's "
+            f"read), {per_s:.1f} {unit}")
+        if name in TRAIN_PROFILED and DEVICE == "cuda":
+            busy, top = device_busy(torch, lambda: cell(ts, batch), warm=False)
+            row["busy_ms"], row["busy_share"] = busy, busy / ms
+            log(f"train_full: {name} step profile: device busy {busy:.1f} ms of a {ms:.1f} ms step "
+                f"({busy / ms:.1%}); most: {top}")
+
+        cut, params, mb = check_cut(common, arch, ts["params"], {k: v[:shape.batch // accum] for k, v in batch.items()})
+        if arch.family in ("dit", "flux"):  # every gradient live: the zero-init leaves drawn, in a copy
+            params = draw_cut_zero_leaves(torch, common, steps, cut, common.tree_map(lambda t: t, params))
+        (agree, agree_s) = timed(torch, lambda: train_agreement(torch, common, steps, diffusion, layers, f32_modules,
+                                                                cut, params, ts["state"], mb))
+        row["agree"] = agree
+        x = next(mb[k] for k in ("tokens", "images", "x") if k in mb)
+        log(f"train_full: {name} (b) {'whole' if cut.cfg == arch.cfg else '2 layers'}, input {tuple(x.shape)}, card "
+            f"against host CPU in f32: loss {agree['loss_rel']:.3e} (limit {TRAIN_LOSS_RTOL}), gradients "
+            f"{agree['grad_rel']:.3e} (limit {grad_limit(arch)}; worst leaf max|d|/max|g| {agree['worst_leaf']:.3e}); "
+            f"wrong path ({agree['wrong']}): loss {agree['wrong_loss_rel']:.3e}, gradients "
+            f"{agree['wrong_grad_rel']:.3e}; in bf16 as the model runs{'' if bf16_held(arch) else ' (logged only)'}: "
+            f"loss {agree['bf16_loss_rel']:.3e} (limit {TRAIN_BF16_LOSS_RTOL}), gradients {agree['bf16_grad_rel']:.3e} "
+            f"(limit {TRAIN_BF16_GRAD_RTOL}), wrong path loss {agree['bf16_wrong_loss_rel']:.3e}, gradients "
+            f"{agree['bf16_wrong_grad_rel']:.3e}; blockwise_sdpa calls {agree['blockwise_calls']}; {agree_s:.1f} s")
+        check(agree["loss_rel"] <= TRAIN_LOSS_RTOL and agree["grad_rel"] <= grad_limit(arch),
+              f"{name}: card and CPU disagree in training: {agree}")
+        check(agree["wrong_grad_rel"] > grad_limit(arch) and agree["wrong_loss_rel"] > TRAIN_LOSS_RTOL,
+              f"{name}: a limit passes the wrong path: {agree}")
+        if bf16_held(arch):
+            check(agree["bf16_loss_rel"] <= TRAIN_BF16_LOSS_RTOL and agree["bf16_grad_rel"] <= TRAIN_BF16_GRAD_RTOL,
+                  f"{name}: card and CPU disagree in training in bf16: {agree}")
+            check(agree["bf16_wrong_grad_rel"] > TRAIN_BF16_GRAD_RTOL,
+                  f"{name}: the bf16 limit passes the wrong path: {agree}")
+
+        if name == "dit-xl2":
+            ts = None  # (a)'s state goes before (c) draws its three
+            row["accum_check"] = train_accumulation(torch, common, steps, cell, arch, adamw, batch)
+        if DEVICE == "cuda":
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            log(f"train_full: {name}: peak card memory {row['peak_gb']:.2f} GB")
+        ts = batch = params = mb = None
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    (restart, restart_s) = timed(torch, lambda: train_restart(torch, train))
+    report["restart"] = restart
+    log(f"train_full: (d) restart through launch.train on {'/'.join(TRAIN_RESTART)}: {TRAIN_RESTART_STEPS} steps "
+        f"straight, last loss {restart['straight']!r}; {TRAIN_RESTART_STEPS // 2} + checkpoint + --resume + "
+        f"{TRAIN_RESTART_STEPS - TRAIN_RESTART_STEPS // 2}: {restart['resumed']!r}; rel {restart['rel']:.3e} (limit "
+        f"1e-4), bitwise {restart['bitwise']}; {restart_s:.1f} s")
+    check(restart["rel"] <= 1e-4, f"restart: resumed loss {restart['resumed']} vs straight {restart['straight']}")
+    return report
+
+
+def train_accumulation(torch, common, steps, cell, arch, adamw, batch) -> dict:
+    """Check (c): from one state (the zero-init leaves drawn, so every
+    gradient is live), a step of ``cell`` (accum_steps 1) against a step at
+    accum_steps TRAIN_ACCUM on the same batch, and the wrong path: the first
+    TRAIN_ACCUM - 1 microbatches only."""
+    shape = arch.shapes[0]
+    states = [train_weights(torch, common, steps, cell, arch, draw_zero=True)]
+    states += [common.tree_map(torch.clone, states[0]) for _ in range(2)]
+    _, full = cell(states[0], batch)
+    _, m = steps.build_cell(arch, shape.name, adamw=adamw, accum_steps=TRAIN_ACCUM)(states[1], batch)
+    keep = shape.batch // TRAIN_ACCUM * (TRAIN_ACCUM - 1)
+    short = dataclasses.replace(arch, shapes=(dataclasses.replace(shape, batch=keep),))
+    _, wrong = steps.build_cell(short, shape.name, adamw=adamw, accum_steps=TRAIN_ACCUM - 1)(
+        states[2], {k: v[:keep] for k, v in batch.items()})
+    lr, loss = adamw.lr, float(full["loss"])
+    got = {"loss": loss, "loss_rel": abs(float(m["loss"]) - loss) / abs(loss),
+           "grad_norm_rel": abs(float(m["grad_norm"]) - float(full["grad_norm"])) / abs(float(full["grad_norm"])),
+           "params_max": max(float((a - b).abs().max()) for a, b in zip(
+               common.tree_leaves(states[1]["params"]), common.tree_leaves(states[0]["params"]))),
+           "wrong_loss_rel": abs(float(wrong["loss"]) - loss) / abs(loss)}
+    log(f"train_full: {arch.name} (c) accum_steps {TRAIN_ACCUM} against 1 on the same batch (zero-init leaves "
+        f"drawn; loss {loss:.6g}): loss rel {got['loss_rel']:.3e} (limit {TRAIN_ACCUM_LOSS_RTOL}), grad_norm rel "
+        f"{got['grad_norm_rel']:.3e} (limit 5e-2), params max|d| {got['params_max']:.3e} (limit {2.5 * lr:.1e} = "
+        f"2.5 lr); wrong path (the last microbatch dropped) loss rel {got['wrong_loss_rel']:.3e}")
+    check(got["loss_rel"] <= TRAIN_ACCUM_LOSS_RTOL and got["grad_norm_rel"] <= 5e-2 and got["params_max"] <= 2.5 * lr,
+          f"accumulation disagrees with the full batch: {got}")
+    check(got["wrong_loss_rel"] > TRAIN_ACCUM_LOSS_RTOL, f"the accumulation limit passes a dropped microbatch: {got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -1929,8 +2370,8 @@ def phase_sweep(torch, core, session, smi: str) -> None:
         # The per-point loop (backend="reference") on the card, for comparison.
         ref_ms = {}
         for n_ref, grid in REFERENCE_GRIDS.items():
-            if name.startswith("jax_") and n_ref > min(REFERENCE_GRIDS):
-                continue  # their per-round planners take seconds a point on the card (phase 8)
+            if name in LOOP_AT_10_ONLY and n_ref > min(REFERENCE_GRIDS):
+                continue
             spec = session.ScenarioSpec.from_json(sweep_spec(name, SWEEP_FRAMES))
             grid = session.SweepGrid.from_json(grid)
             loop, s = timed(torch, lambda: session.Session(spec, device=DEVICE).run_sweep(grid, backend="reference"))
@@ -3219,15 +3660,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import arch as A
-    from repro_torch import configs, core, quant, scenariogen, serving, session
+    from repro_torch import configs, core, data, quant, scenariogen, serving, session
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.npu_matmul import ops, ref
-    from repro_torch.launch import serve, steps
-    from repro_torch.models import common, diffusion, lm
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.models import common, convnets, diffusion, lm, vision
     from repro_torch.models import layers as L
     from repro_torch.serving.calibrate import _median_s
+    from repro_torch.train import optim
 
     t0 = time.perf_counter()
     walls = {}  # phase -> wall seconds
@@ -3265,6 +3707,13 @@ def main() -> int:
         diff_int8, diff_flash = ops.int8_matmul.launches, flash_ops.flash_attention.launches
         check(diff_int8 == 0, f"diffusion_full launched the int8 kernel {diff_int8} times")
         torch.cuda.empty_cache()
+        ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+        train_report = phase("train_full", lambda: phase_train_full(
+            torch, configs, common, steps, diffusion, L, data, optim, train, (lm, diffusion, convnets, vision)))
+        train_launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+        log(f"train_full: kernel launches (int8_matmul, flash_attention) {train_launches}")
+        check(train_launches == (0, 0), "train_full launched a model kernel: training runs neither, as the reference")
+        torch.cuda.empty_cache()
         serving_int8, serving_flash = phase("serving", lambda: phase_serving(torch, ops, flash_ops, serve, session))
     more_gemms, more_flash = phase("main shapes", lambda: phase_main_shapes(
         torch, ops, ref, flash_ops, flash_ref, gemms - gemm_rows.keys(), attns - flash_rows.keys()))
@@ -3285,9 +3734,10 @@ def main() -> int:
     int8_launches = full_launches + vit_int8 + zoo_int8 + serving_int8
     flash_launches = vit_flash + zoo_flash + lm_flash + diff_flash + serving_flash
     log(f"kernels: [int8_matmul: {int8_launches} launches on the main path (serve_full {full_launches}, "
-        f"vit_full {vit_int8}, zoo_full {zoo_int8}, lm_full 0, diffusion_full 0, serving {serving_int8}); "
-        f"flash_attention: {flash_launches} launches on the main path (vit_full {vit_flash}, zoo_full {zoo_flash}, "
-        f"lm_full {lm_flash}, diffusion_full {diff_flash}, serving {serving_flash})]")
+        f"vit_full {vit_int8}, zoo_full {zoo_int8}, lm_full 0, diffusion_full 0, train_full {train_launches[0]}, "
+        f"serving {serving_int8}); flash_attention: {flash_launches} launches on the main path (vit_full {vit_flash}, "
+        f"zoo_full {zoo_flash}, lm_full {lm_flash}, diffusion_full {diff_flash}, train_full {train_launches[1]}, "
+        f"serving {serving_flash})]")
     for name, r in lm_report.items():
         log(f"lm_full summary {name} ({r['layers']} layers): prefill " + ", ".join(
             f"S {S}: {p['ms']:.2f} ms, {p['tokens_per_s']:.0f} tokens/s, {p['launches']} flash launches"
@@ -3302,6 +3752,16 @@ def main() -> int:
             f"{p['launches']} flash launches a step, vs plain {p['rel']:.4%} (control {p['control']:.4%})"
             for s, p in r["shapes"].items()) + f"; wrong path {r['wrong']:.4%}; {DIFF_REQUEST} request "
             f"{r['request']['s']:.3f} s; peak {r.get('peak_gb', 0.0):.2f} GB")
+    for name, r in train_report.items():
+        if name == "restart":
+            continue
+        a, cut = r["agree"], "whole" if r["depth"] is None else f"depth {r['depth']}"
+        log(f"train_full summary {name} ({r['shape']}, {cut}, "
+            f"batch {r['batch']}, accum_steps {r['accum']}): {r['ms']:.1f} ms a step, {r['per_s']:.1f} {r['unit']}, "
+            f"loss {r['losses'][0]:.5g} -> {r['losses'][-1]:.5g}, card vs CPU loss {a['loss_rel']:.2e} grads "
+            f"{a['grad_rel']:.2e} (wrong path {a['wrong_grad_rel']:.2e})"
+            + (f", device busy {r['busy_share']:.1%}" if "busy_share" in r else "")
+            + f"; peak {r.get('peak_gb', 0.0):.2f} GB")
     # flash at every lm_full and diffusion_full shape, from phase 3 (launches a step where a step has several)
     main_flash = {s: ("LM prefill", None) for s in lm_flash_shapes(A, configs)}
     main_flash |= {s: ("diffusion", attention_layers(configs.get(m).cfg)) for s, m in DIFF_FLASH_SHAPES.items()}
@@ -3340,6 +3800,7 @@ def main() -> int:
         "bound_ms": agg["bound_ms"],
         "bound_by": "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations",
         "library_ms": agg["library_ms"],
+        "train_full_launches": train_launches[0],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -3352,6 +3813,7 @@ def main() -> int:
         "bound_ms": n_layers * vit1["bound_ms"],
         "bound_by": vit1["bound_by"],
         "library_ms": n_layers * vit1["library_ms"],
+        "train_full_launches": train_launches[1],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,22 +1,33 @@
-"""Build step programs per (arch x shape) cell — the serving kinds.
+"""Build step programs per (arch x shape) cell.
 
-``build_cell(arch, shape_name)`` returns a CellProgram with:
-  fn          the step callable (prefill / decode / denoise_step /
-              classify_serve)
+``build_cell(arch, shape_name, adamw=None, accum_steps=1)`` returns a
+CellProgram with:
+  fn          the step callable (train_step / prefill / decode /
+              denoise_step / classify_serve)
   arg_specs   ParamSpec trees of its arguments (``common.abstract_tree``
               sizes them without allocating)
-  donate      argument indices the step updates in place (the KV cache)
+  donate      argument indices the step updates in place (the train state,
+              the KV cache)
 
 ``prog.init_args(seed, device="cuda")`` materializes the arguments and
 ``prog(*args)`` runs the step.  Serving parameters are drawn directly in
 bf16 from the cast specs, a leaf at a time: no full f32 tree is ever made
 (command-r's would be 130 GB).
 
+A training cell (``train``, ``denoise_train``, ``classify_train``) takes
+``(ts, batch)``, with ``ts = {"params" f32, "state", "opt": {"m", "v" f32,
+"step" int32}}`` (16 bytes a parameter), and returns ``(ts, metrics)``:
+the loss's gradient by ``torch.autograd.grad`` over the parameter leaves,
+then one AdamW update (``train/optim``) written into ``ts`` in place.  With
+``accum_steps`` > 1 the batch's leading dimension splits into that many
+microbatches, run in order with BatchNorm state carried through them, and
+their f32 gradients are summed and divided once.  ``meta["loss_fn"]`` is the
+kind's ``loss_fn(params, state, batch) -> (loss, (metrics, new_state))``;
+``value_and_grad`` gives its loss and gradients without an update.
+
 A ``denoise_step`` cell runs one sampler step of DiT (DDIM, cosine
 schedule) or Flux (rectified-flow Euler) on ``{"x", "t", "dt", ...}``.
-The training kinds (``train``, ``denoise_train``, ``classify_train``) are
-not ported yet (ROADMAP item 9); mesh rules wait for the multi-device path
-(item 8).  Both raise.
+Mesh rules wait for the multi-device path (ROADMAP item 8) and raise.
 """
 from __future__ import annotations
 
@@ -24,13 +35,13 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from .. import arch as A
 from ..device import resolve_device
 from ..models import diffusion, lm
-from ..models.common import ParamSpec, init_tree, tree_map
-
-_TRAIN_KINDS = ("train", "denoise_train", "classify_train")
+from ..models.common import ParamSpec, init_tree, spec, tree_leaves, tree_map
+from ..train import optim
 
 
 @dataclasses.dataclass
@@ -79,19 +90,117 @@ def _shape_cfg(arch: A.Arch, shape: A.ShapeSpec) -> A.Arch:
     return dataclasses.replace(arch, cfg=cfg)
 
 
-def build_cell(arch: A.Arch, shape_name: str, rules=None) -> CellProgram:
-    """The step program of ``arch`` at its shape ``shape_name``."""
+def _loss_fn(arch: A.Arch, kind: str) -> Callable:
+    """``loss_fn(params, state, batch) -> (loss, (metrics, new_state))`` of a
+    training kind."""
+    cfg = arch.cfg
+    if kind == "train":
+
+        def loss_fn(params, state, batch):
+            loss, metrics = lm.train_loss(cfg, params, batch["tokens"], batch["labels"])
+            return loss, (metrics, state)
+
+    elif kind == "denoise_train" and arch.family == "dit":
+
+        def loss_fn(params, state, batch):
+            loss, m = diffusion.dit_train_loss(cfg, params, batch["x"], batch["t"], batch["y"], batch["noise"])
+            return loss, (m, state)
+
+    elif kind == "denoise_train":
+
+        def loss_fn(params, state, batch):
+            loss, m = diffusion.flux_train_loss(cfg, params, batch["x"], batch["txt"], batch["vec"], batch["t"],
+                                                batch["noise"])
+            return loss, (m, state)
+
+    else:  # classify_train
+
+        def loss_fn(params, state, batch):
+            logits, new_state = A.classifier_forward(arch, params, state, batch["images"], train=True)
+            logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+            gold = torch.gather(logp, -1, batch["labels"].to(torch.int64)[:, None])
+            loss = -torch.mean(gold)
+            return loss, ({"ce": loss}, new_state)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, state, batch):
+    """(loss, (metrics, new_state)), f32 gradients of ``loss_fn`` at
+    ``params``: differentiated through aliases of the parameters (autograd
+    leaves sharing their storage), so the train state never carries
+    ``requires_grad``.  A parameter the loss does not use gets zeros, as
+    ``jax.grad`` gives."""
+    alias = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, (metrics, new_state) = loss_fn(alias, state, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(alias), allow_unused=True, materialize_grads=True)
+    detach = lambda t: t.detach() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    return (loss.detach(), (tree_map(detach, metrics), tree_map(detach, new_state))), list(grads)
+
+
+def _train_step(loss_fn, adamw: optim.AdamWConfig, accum_steps: int) -> Callable:
+    def train_step(ts, batch):
+        params = ts["params"]
+        if accum_steps == 1:
+            (loss, (metrics, new_state)), grads = value_and_grad(loss_fn, params, ts["state"], batch)
+        else:
+            # Microbatch over the leading (batch) dim; grads summed in f32, averaged once.
+            micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:]) for k, v in batch.items()}
+            new_state, loss, grads = ts["state"], None, None
+            for i in range(accum_steps):
+                (mb_loss, (_, new_state)), g = value_and_grad(loss_fn, params, new_state,
+                                                               {k: v[i] for k, v in micro.items()})
+                if grads is None:
+                    loss, grads = mb_loss, g
+                else:
+                    loss = loss + mb_loss
+                    for a, b in zip(grads, g):
+                        a.add_(b)
+            for g in grads:
+                g.div_(accum_steps)
+            loss = loss / accum_steps
+            metrics = {}
+        it = iter(grads)
+        om = optim.adamw_update(adamw, params, tree_map(lambda _: next(it), params), ts["opt"])
+        ts["state"] = new_state
+        return ts, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConfig | None = None,
+               accum_steps: int = 1) -> CellProgram:
+    """The step program of ``arch`` at its shape ``shape_name``.  For a
+    training kind, ``adamw`` (default ``AdamWConfig()``) and ``accum_steps``
+    (> 1 splits the global batch into microbatches and accumulates their
+    gradients before one update: the elastic-restart lever that keeps the
+    global batch when the data axis shrinks)."""
     if rules is not None:
         raise NotImplementedError("mesh rules are not ported: the port runs on one card (ROADMAP item 8)")
     shape = arch.shape(shape_name)
-    if shape.kind in _TRAIN_KINDS:
-        raise NotImplementedError(f"{arch.name}/{shape.name}: the {shape.kind!r} step is not ported (ROADMAP item 9)")
     arch = _shape_cfg(arch, shape)
     cfg = arch.cfg
     param_specs, state_specs = A.abstract_params(arch)
     in_specs = A.input_specs(arch, shape)
     name = f"{arch.name}/{shape.name}"
     meta = {"arch": arch, "shape": shape}
+
+    if shape.kind in ("train", "denoise_train", "classify_train"):
+        if shape.batch % accum_steps:
+            raise ValueError(f"{name}: batch {shape.batch} does not split into {accum_steps} microbatches")
+        zeros = lambda s: ParamSpec(s.shape, s.axes, torch.float32, "zeros")  # noqa: E731
+        ts_specs = {
+            "params": param_specs,
+            "state": state_specs,
+            "opt": {"m": tree_map(zeros, param_specs), "v": tree_map(zeros, param_specs),
+                    "step": spec((), (), dtype=torch.int32, init="zeros")},
+        }
+        loss_fn = _loss_fn(arch, shape.kind)
+        step = _train_step(loss_fn, adamw or optim.AdamWConfig(), accum_steps)
+        return CellProgram(name, shape.kind, step, (ts_specs, in_specs), donate=(0,),
+                           meta={**meta, "loss_fn": loss_fn})
+
     serve_params = _cast_specs(param_specs, torch.bfloat16)
 
     if shape.kind == "prefill":

@@ -13,10 +13,12 @@ OIHW, PyTorch's layout; matrices are [K, N] and multiply as ``x @ w``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Iterable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Tree = Any
 
@@ -94,9 +96,24 @@ def stack_specs(specs: Tree, n: int) -> Tree:
     return tree_map(lambda s: dataclasses.replace(s, shape=(n, *s.shape), axes=("layers", *s.axes)), specs)
 
 
-def index_tree(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of a stacked tree."""
-    return tree_map(lambda t: t[i], tree)
+def unstack_tree(tree: Tree) -> list[Tree]:
+    """Every layer of a stacked tree, from one ``torch.unbind`` a leaf.  Under
+    autograd an unbind's backward stacks the layers' gradients once, where
+    indexing a layer at a time would scatter each layer's into a zero-filled
+    copy of the whole stack."""
+    per_leaf = tree_map(lambda t: torch.unbind(t, 0), tree)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda parts: parts[i], per_leaf) for i in range(n)]
+
+
+def checkpointed(remat: bool, block: Callable) -> Callable:
+    """``block``, checkpointed when ``remat`` and an autograd graph is being
+    built (``torch.utils.checkpoint``, non-reentrant): only its inputs are
+    kept, and it runs again in the backward pass, as under the reference's
+    ``jax.checkpoint``.  Otherwise ``block`` itself."""
+    if not (remat and torch.is_grad_enabled()):
+        return block
+    return functools.partial(checkpoint, block, use_reentrant=False)
 
 
 def init_tree(gen: torch.Generator, specs: Tree, *, device: torch.device | str = "cuda") -> Tree:

@@ -26,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import current_matmul, index_tree, matmul, shard, spec, stack_specs
+from .common import current_matmul, matmul, shard, spec, stack_specs, unstack_tree
 
 BN_MOMENTUM = 0.9
 
@@ -214,8 +214,8 @@ def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = Fals
         if depth > 1:
             rest_p, rest_s = params[f"stage{i}_rest"], state[f"stage{i}_rest"]
             new_states = []
-            for layer in range(depth - 1):
-                x, s2 = _bottleneck(index_tree(rest_p, layer), index_tree(rest_s, layer), x, 1, train)
+            for blk_p, blk_s in zip(unstack_tree(rest_p), unstack_tree(rest_s)):
+                x, s2 = _bottleneck(blk_p, blk_s, x, 1, train)
                 new_states.append(s2)
             ns[f"stage{i}_rest"] = _restack(new_states)
         x = shard(x, "batch", None, None, None)
@@ -347,8 +347,8 @@ def effnet_forward(c: EfficientNetConfig, params, state, images, *, train: bool 
         if reps > 1:
             rest_p, rest_s = params[f"stage{i}_rest"], state[f"stage{i}_rest"]
             new_states = []
-            for layer in range(reps - 1):
-                x, s2 = _mbconv(index_tree(rest_p, layer), index_tree(rest_s, layer), x, 1, train)
+            for blk_p, blk_s in zip(unstack_tree(rest_p), unstack_tree(rest_s)):
+                x, s2 = _mbconv(blk_p, blk_s, x, 1, train)
                 new_states.append(s2)
             ns[f"stage{i}_rest"] = _restack(new_states)
         x = shard(x, "batch", None, None, None)

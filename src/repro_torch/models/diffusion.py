@@ -1,24 +1,27 @@
 """Diffusion backbones: DiT (adaLN-Zero) and Flux-style MMDiT (double-stream
-joint attention + single-stream blocks, rectified flow) — the serving half.
+joint attention + single-stream blocks, rectified flow).
 
 Both operate on VAE latents (the reference's stub frontend: the inputs are
 latents).  One call = ONE denoising step; samplers loop around it.
 
   dit_forward(cfg, params, x_t, t, y)                 -> prediction (noise, 2C ch)
   flux_forward(cfg, params, img, txt, vec, t, g)      -> velocity prediction
+  dit_train_loss / flux_train_loss                    the training objectives
   dit_sample_step / flux_sample_step                  one step, under no_grad
 
 Parameters keep the reference's keys and stacked ``[L]`` block layout, so
 ``interop.from_jax`` carries them across; each forward loops over the
-stacked blocks (``common.index_tree``) where the reference scans.  Every
+stacked blocks (``common.unstack_tree``) where the reference scans.  Every
 attention goes through ``layers._attend``, so on the card each attention
-layer launches the flash kernel (non-causal): DiT's blocks through
-``layers.attention``, and Flux's joint and single-stream attention, where
-the reference calls ``_sdpa`` / ``blockwise_sdpa`` directly (the kernel is
-the reference's kernel for that math).  The reference's sharding hints
-(``shard``, ``_pin_replicated``) are identities on one card and are left
-out; ``remat`` is carried and has no effect in serving.  The training
-losses wait for the training slice (ROADMAP item 9).
+layer of a sampling step launches the flash kernel (non-causal): DiT's
+blocks through ``layers.attention``, and Flux's joint and single-stream
+attention, where the reference calls ``_sdpa`` / ``blockwise_sdpa``
+directly (the kernel is the reference's kernel for that math).  A forward
+that builds an autograd graph takes the reference's differentiable
+branches instead, and with ``cfg.remat`` checkpoints each block (DiT's,
+Flux's double and single alike) as the reference's ``jax.checkpoint``
+does.  The reference's sharding hints (``shard``, ``_pin_replicated``) are
+identities on one card and are left out.
 """
 from __future__ import annotations
 
@@ -29,9 +32,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-
 from . import layers as L
-from .common import index_tree, spec, stack_specs
+from .common import checkpointed, spec, stack_specs, unstack_tree
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -79,7 +81,7 @@ class DiTConfig:
     in_ch: int = 4
     n_classes: int = 1000
     mlp_ratio: int = 4
-    remat: bool = False  # the reference's gradient rematerialization: no effect in serving
+    remat: bool = False  # checkpoint each block while an autograd graph is built
 
     @property
     def latent(self) -> int:
@@ -173,8 +175,9 @@ def dit_forward(c: DiTConfig, params, x_t, t, y):
     yemb = params["y_embed"].to(torch.bfloat16)[y]
     cond = F.silu(temb + yemb)
 
-    for layer in range(c.n_layers):
-        x = _dit_block(c, index_tree(params["blocks"], layer), x, cond)
+    block = checkpointed(c.remat, _dit_block)
+    for blk in unstack_tree(params["blocks"]):
+        x = block(c, blk, x, cond)
 
     fin = params["final"]
     mod = cond @ fin["adaln"]["w"].to(cond.dtype) + fin["adaln"]["b"].to(cond.dtype)
@@ -182,6 +185,16 @@ def dit_forward(c: DiTConfig, params, x_t, t, y):
     x = L.modulate(L.layernorm(fin["ln"], x), sh, sc)
     x = x @ fin["proj"]["w"].to(x.dtype) + fin["proj"]["b"].to(x.dtype)
     return _unpatchify(x.to(torch.float32), p, H // p, W // p, 2 * c.in_ch)
+
+
+def dit_train_loss(c: DiTConfig, params, x0, t, y, noise):
+    """DDPM eps-prediction MSE at cosine-schedule timestep t in [0,1]."""
+    a = torch.cos(0.5 * math.pi * t).to(torch.float32)[:, None, None, None]
+    s = torch.sin(0.5 * math.pi * t).to(torch.float32)[:, None, None, None]
+    x_t = a * x0 + s * noise
+    pred = dit_forward(c, params, x_t, t * 1000.0, y)
+    eps = pred[..., : c.in_ch]
+    return torch.mean((eps - noise) ** 2), {}
 
 
 @torch.no_grad()
@@ -219,7 +232,7 @@ class FluxConfig:
     vec_dim: int = 768
     mlp_ratio: int = 4
     guidance: bool = True
-    remat: bool = True  # the reference's gradient rematerialization: no effect in serving
+    remat: bool = True  # checkpoint each block while an autograd graph is built
 
     @property
     def tokens(self) -> int:
@@ -359,12 +372,13 @@ def flux_forward(c: FluxConfig, params, img_lat, txt, vec, t, guidance=None):
         )
     cond = F.silu(cond)
 
-    for layer in range(c.n_double):
-        img, txt = _double_block(c, index_tree(params["double"], layer), img, txt, cond)
+    double, single = checkpointed(c.remat, _double_block), checkpointed(c.remat, _single_block)
+    for blk in unstack_tree(params["double"]):
+        img, txt = double(c, blk, img, txt, cond)
 
     x = torch.cat([txt, img], dim=1)
-    for layer in range(c.n_single):
-        x = _single_block(c, index_tree(params["single"], layer), x, cond)
+    for blk in unstack_tree(params["single"]):
+        x = single(c, blk, x, cond)
     img = x[:, c.txt_len :]
 
     fin = params["final"]
@@ -372,6 +386,15 @@ def flux_forward(c: FluxConfig, params, img_lat, txt, vec, t, guidance=None):
     img = L.modulate(L.layernorm(fin["ln"], img), sh, sc)
     img = img @ fin["proj"]["w"].to(img.dtype) + fin["proj"]["b"].to(img.dtype)
     return _unpatchify(img.to(torch.float32), p, H // p, W // p, c.in_ch)
+
+
+def flux_train_loss(c: FluxConfig, params, x0, txt, vec, t, noise):
+    """Rectified-flow v-prediction: x_t = (1-t) x0 + t eps, v* = eps - x0."""
+    tt = t.to(torch.float32)[:, None, None, None]
+    x_t = (1 - tt) * x0 + tt * noise
+    g = torch.full(t.shape, 4.0, dtype=torch.float32, device=t.device) if c.guidance else None
+    v = flux_forward(c, params, x_t, txt, vec, t, g)
+    return torch.mean((v - (noise - x0)) ** 2), {}
 
 
 @torch.no_grad()

@@ -1,18 +1,22 @@
 """Decoder-only LM family (dense + MoE): qwen3, command-r, qwen2-moe,
-deepseek-moe — the serving half.  Layers are stored stacked on a leading
-``[L]`` axis, as the reference scans over them; here each step is a loop
-over the layers, indexing the stack per layer (``common.index_tree``).
+deepseek-moe.  Layers are stored stacked on a leading ``[L]`` axis, as the
+reference scans over them; here each step is a loop over the layers
+(``common.unstack_tree``).
 
 Entry points:
   abstract_params(cfg)                      parameter ParamSpec tree
   forward(cfg, params, tokens)              hidden states + MoE aux loss
+  train_loss(cfg, params, tokens, labels)   masked next-token CE + aux loss
   prefill(cfg, params, tokens)              logits[:, -1:] + stacked KV cache
   decode_step(cfg, params, token, cache)    one-token decode, cache in place
 
 Prefill attention goes through ``layers.attention``, so on the card every
 layer launches the flash kernel (causal); decode keeps the reference's
-masked ``_sdpa`` over the whole cache.  ``train_loss`` waits for the
-training slice (ROADMAP item 9).
+masked ``_sdpa`` over the whole cache.  A forward that builds an autograd
+graph (training) takes the reference's differentiable attention instead
+(``layers._attend``), and with ``cfg.remat`` checkpoints each block as the
+reference's ``jax.checkpoint`` does: only the block's input is kept, and
+the block is run again in the backward pass.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
-from .common import index_tree, shard, spec, stack_specs
+from .common import checkpointed, shard, spec, stack_specs, unstack_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +43,12 @@ class LMConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     moe: L.MoECfg | None = None
-    # The next three are the reference's sharding and memory settings: gradient
-    # rematerialization, sequence-sharded residuals between blocks, and the
-    # KV cache's logical sequence axis.  The port serves on one card without
-    # autograd, so they are carried and have no effect.
+    # Gradient rematerialization: each block is checkpointed while an autograd
+    # graph is built (``forward``); no effect without one.
     remat: bool = True
+    # The reference's sharding settings: sequence-sharded residuals between
+    # blocks and the KV cache's logical sequence axis.  The port runs on one
+    # card, so they are carried and have no effect.
     seq_shard_acts: bool = False
     kv_seq_axis: str = "kv_seq"
     # int8 KV cache (per-token/head scales): halves the decode memory term.
@@ -107,12 +112,19 @@ def _block(c: LMConfig, blk, x):
     return x + f, kv, aux
 
 
+def _block_train(c: LMConfig, blk, x):
+    """``_block`` without its (k, v): (x, MoE aux loss)."""
+    x, _kv, aux = _block(c, blk, x)
+    return x, aux
+
+
 def forward(c: LMConfig, params, tokens):
     """tokens [B,S] -> (hidden [B,S,D], aux loss)."""
     x = _embed(params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(c.n_layers):
-        x, _kv, a_aux = _block(c, index_tree(params["blocks"], layer), x)
+    block = checkpointed(c.remat, _block_train)
+    for blk in unstack_tree(params["blocks"]):
+        x, a_aux = block(c, blk, x)
         aux = aux + a_aux
     return L.rmsnorm(params["ln_f"], x, c.norm_eps), aux
 
@@ -120,6 +132,18 @@ def forward(c: LMConfig, params, tokens):
 def logits_fn(c: LMConfig, params, hidden):
     out = torch.einsum("bsd,dv->bsv", hidden, params["head"].to(hidden.dtype))
     return shard(out, "batch", None, "vocab")
+
+
+def train_loss(c: LMConfig, params, tokens, labels):
+    """Mean next-token cross-entropy; labels = tokens shifted by the pipeline.
+    A label id < 0 masks its position out.  Returns (ce + aux, {"ce", "aux"})."""
+    hidden, aux = forward(c, params, tokens)
+    logits = logits_fn(c, params, hidden).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +204,8 @@ def prefill(c: LMConfig, params, tokens, max_len: int | None = None):
     max_len = max_len or S
     x = _embed(params, tokens)
     cache = make_cache(c, B, max_len, x.dtype, device=x.device)  # bf16, the embedding's cast
-    for layer in range(c.n_layers):
-        x, (k, v), _ = _block(c, index_tree(params["blocks"], layer), x)
+    for layer, blk in enumerate(unstack_tree(params["blocks"])):
+        x, (k, v), _ = _block(c, blk, x)
         if c.kv_quant:
             (cache["k"][layer, :, :S], cache["k_scale"][layer, :, :S]) = L.quantize_kv(k)
             (cache["v"][layer, :, :S], cache["v_scale"][layer, :, :S]) = L.quantize_kv(v)
@@ -200,8 +224,7 @@ def decode_step(c: LMConfig, params, token, cache):
     donates them) and the returned dict holds them with ``len`` + 1."""
     x = _embed(params, token)
     quant = c.kv_quant
-    for layer in range(c.n_layers):
-        blk = index_tree(params["blocks"], layer)
+    for layer, blk in enumerate(unstack_tree(params["blocks"])):
         h = L.rmsnorm(blk["ln1"], x, c.norm_eps)
         scales = {"k_scale": cache["k_scale"][layer], "v_scale": cache["v_scale"][layer]} if quant else {}
         a = L.attention_decode(c.attn_cfg(), blk["attn"], h, cache["k"][layer], cache["v"][layer], cache["len"],

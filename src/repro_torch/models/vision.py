@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
-from .common import index_tree, shard, spec, stack_specs
+from .common import shard, spec, stack_specs, unstack_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +97,8 @@ def vit_forward(c: ViTConfig, params, images):
     cls = params["cls"].to(x.dtype).expand(B, 1, c.d_model)
     x = torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
     x = shard(x, "batch", None, None)
-    for layer in range(c.n_layers):  # the reference's lax.scan over the stacked blocks
-        x = _vit_block(c, index_tree(params["blocks"], layer), x)
+    for blk in unstack_tree(params["blocks"]):  # the reference's lax.scan over the stacked blocks
+        x = _vit_block(c, blk, x)
     x = L.layernorm(params["ln_f"], x)
     h = x[:, 0]
     logits = h @ params["head"]["w"].to(h.dtype) + params["head"]["b"].to(h.dtype)
@@ -261,8 +261,8 @@ def swin_forward(c: SwinConfig, params, images):
         stage = params[f"stage{i}"]
         # Canonical Swin: no shift when one window covers the feature map.
         shift_amt = c.window // 2 if H > c.window else 0
-        for idx in range(depth):  # the reference's lax.scan; odd blocks shift
-            x = _swin_block(c, dim, heads, index_tree(stage["blocks"], idx), x, H, W, shift_amt if idx % 2 else 0)
+        for idx, blk in enumerate(unstack_tree(stage["blocks"])):  # the reference's lax.scan; odd blocks shift
+            x = _swin_block(c, dim, heads, blk, x, H, W, shift_amt if idx % 2 else 0)
         if i < len(c.depths) - 1:
             # Patch merging: 2x2 neighbourhood concat + linear down-projection.
             xs = L.layernorm(stage["merge"]["ln"], _patch_merge(x, H, W))

@@ -1,9 +1,12 @@
 """AdamW with linear warmup + cosine decay, on dicts of tensors.
 
-Optimizer state mirrors the params tree: {"m": ..., "v": ...} in f32 plus an
-integer step.  Unlike the reference's pure update, ``adamw_update`` writes the
-new parameters and moments in place (the parameters are autograd leaves the
-next step differentiates again), which saves a copy of every tensor.
+Optimizer state mirrors the params tree: {"m": ..., "v": ...} in f32 plus a
+0-d int32 ``step`` tensor on the parameters' device, as the reference's, so a
+checkpoint holds it as a leaf.  Unlike the reference's pure update,
+``adamw_update`` writes the new parameters, moments and step in place, which
+saves a copy of every tensor.  The schedule and bias corrections are
+computed from the step tensor in f32, as the reference computes them, so a
+step on the card reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -29,17 +32,20 @@ class AdamWConfig:
     min_lr_ratio: float = 0.1
 
 
-def lr_at(c: AdamWConfig, step: int) -> float:
-    """Linear warmup then cosine decay to min_lr_ratio * lr."""
-    if step < c.warmup_steps:
-        return c.lr * step / max(c.warmup_steps, 1)
-    prog = min(max((step - c.warmup_steps) / max(c.total_steps - c.warmup_steps, 1), 0.0), 1.0)
-    return c.lr * (c.min_lr_ratio + (1 - c.min_lr_ratio) * 0.5 * (1 + math.cos(math.pi * prog)))
+def lr_at(c: AdamWConfig, step: torch.Tensor | int) -> torch.Tensor:
+    """Linear warmup then cosine decay to min_lr_ratio * lr, in f32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(c.warmup_steps, 1)
+    prog = torch.clamp((step - c.warmup_steps) / max(c.total_steps - c.warmup_steps, 1), 0.0, 1.0)
+    cos = c.min_lr_ratio + (1 - c.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return c.lr * torch.where(step < c.warmup_steps, warm, cos)
 
 
 def init_opt_state(params: Any) -> dict:
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": 0}
+    device = tree_leaves(params)[0].device
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -48,9 +54,10 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(c: AdamWConfig, params: Any, grads: Any, opt: dict) -> dict:
-    """One AdamW step in place; returns metrics {"grad_norm", "lr"}."""
-    opt["step"] += 1
-    step = opt["step"]
+    """One AdamW step in place; returns metrics {"grad_norm", "lr"} (0-d f32
+    tensors)."""
+    opt["step"].add_(1)
+    step = opt["step"].to(torch.float32)
     gnorm = global_norm(grads)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) if c.grad_clip else 1.0
     lr = lr_at(c, step)

@@ -39,7 +39,14 @@ Tolerances and why:
     the seven batched_multi policies at 54 points of chip_smoke's fleet
     grid: exact, the scheduler's counters and the server's included;
   * a cached lane program (``core/sweep_shard``) replayed for a new group
-    against the same group run with an empty cache: exact.
+    against the same group run with an empty cache: exact;
+  * a smoke training step on the card against the same step on the CPU, from
+    the same train state and batch: with the model modules in f32, the loss
+    within ``TRAIN_LOSS_RTOL`` and the gradients within ``grad_limit``
+    (relative L2 over every leaf; chip_smoke's train_full limits: f32 summed
+    in another order), the wrong path beyond; one whole step as the model
+    runs (bf16), its loss within ``TRAIN_BF16_LOSS_RTOL``; no launch of
+    either kernel.
 """
 from __future__ import annotations
 
@@ -65,9 +72,11 @@ from chip_smoke import (  # noqa: E402
     MISALIGNED,
     SWEEP_PARAMS,
     LM_LOGIT_RTOL,
+    TRAIN_LOSS_RTOL,
     at_offset,
     attention_layers,
     draw_zero_leaves,
+    grad_limit,
     prediction,
     batch_scenarios,
     compare_logits,
@@ -79,6 +88,7 @@ from chip_smoke import (  # noqa: E402
     own_fan_in,
     record_gemms,
     stats_rows,
+    train_agreement,
     upcast_attention,
     ZOO_GEMMS,
 )
@@ -90,7 +100,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.npu_matmul import ops, ref
 from repro_torch.launch import steps
-from repro_torch.models import common, diffusion, lm
+from repro_torch.models import common, convnets, diffusion, lm, vision
 from repro_torch.models import layers as L
 from repro_torch.models.common import init_tree, matmul_backend
 
@@ -547,3 +557,32 @@ def test_diffusion_smoke_cells_on_card(cuda_device, name, monkeypatch):
     assert scale > 0 and float((pred - plain).abs().max()) <= LM_LOGIT_RTOL * scale
     out = cell(params, batch)
     assert out.shape == batch["x"].shape and bool(torch.isfinite(out).all())
+
+
+TRAIN_BF16_LOSS_RTOL = 0.01  # bf16 on both: ResNet-50 at batch 2 read 3.5e-3 on an H100 (PERF.md §6)
+TRAIN_SMOKE = {"qwen3-0.6b": A.ShapeSpec("t", "train", 2, seq=64), "dit-xl2": A.ShapeSpec("t", "denoise_train", 4, img=64),
+               "flux-dev": A.ShapeSpec("t", "denoise_train", 2, img=64),
+               "resnet-50": A.ShapeSpec("t", "classify_train", 4, img=64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TRAIN_SMOKE))
+def test_train_step_on_card_against_cpu(cuda_device, name):
+    arch = dataclasses.replace(configs.get(name, smoke=True), shapes=(TRAIN_SMOKE[name],))
+    cell = steps.build_cell(arch, "t")
+    ts = cell.init_arg(0, 0, "cpu")
+    if arch.family in ("dit", "flux"):
+        draw_zero_leaves(common, ts["params"], cell.arg_specs[0]["params"], torch.Generator().manual_seed(1))
+    batch = A.make_inputs(arch, arch.shape("t"), 1, device="cpu")
+    on_card = lambda tree: common.tree_map(lambda t: t.to(cuda_device), tree)  # noqa: E731
+    ts_card, batch_card = on_card(ts), on_card(batch)
+    launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+    agree = train_agreement(torch, common, steps, diffusion, L, (lm, diffusion, convnets, vision), arch,
+                            ts_card["params"], ts_card["state"], batch_card)
+    assert agree["loss_rel"] <= TRAIN_LOSS_RTOL and agree["grad_rel"] <= grad_limit(arch), agree
+    assert agree["wrong_grad_rel"] > grad_limit(arch), agree
+    _, m_cpu = cell(ts, batch)
+    _, m_card = cell(ts_card, batch_card)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= TRAIN_BF16_LOSS_RTOL * abs(float(m_cpu["loss"]))
+    assert int(ts_card["opt"]["step"]) == int(ts["opt"]["step"]) == 1
+    assert (ops.int8_matmul.launches, flash_ops.flash_attention.launches) == launches

@@ -179,7 +179,7 @@ def test_patchify_matches_reference_and_round_trips(p, hw, c):
 
 
 def _layer(tree_j, tree, i: int = 0):
-    return jax.tree.map(lambda a: a[i], tree_j), common.index_tree(tree, i)
+    return jax.tree.map(lambda a: a[i], tree_j), common.unstack_tree(tree)[i]
 
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])

@@ -155,7 +155,7 @@ def test_attention_decode_matches_reference(cache_len, quant):
     cfg_j, params_j, cfg, params = _weights(name, 3)
     c_j, c = cfg_j.attn_cfg(), cfg.attn_cfg()
     attn_j = jax.tree.map(lambda a: a[0], params_j["blocks"]["attn"])
-    attn = common.index_tree(params["blocks"]["attn"], 0)
+    attn = common.unstack_tree(params["blocks"]["attn"])[0]
     B, T, KH, hd = 2, 12, cfg.n_kv_heads, cfg.hd
     x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
     kv = rng.standard_normal((2, B, T, KH, hd)).astype(np.float32)

@@ -17,6 +17,7 @@ Tolerances and why:
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -175,12 +176,59 @@ def test_shape_overrides():
         assert {k: getattr(cfg, k) for k in want} == want
 
 
-@pytest.mark.parametrize("name,shape", [("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
-                                        ("vit-s16", "cls_224"), ("resnet-50", "cls_384"),
-                                        ("dit-xl2", "train_256"), ("flux-dev", "train_1024")])
-def test_training_kinds_raise(name, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        steps.build_cell(configs.get(name), shape)
+# Train state under TRAIN_POLICY: 16 bytes a parameter with the gradients (f32
+# params, grads, m, v), in GB: ROADMAP §1's fit table.  Classifiers: at most 1.4.
+TRAIN_GB = {"qwen3-0.6b": 12.0, "command-r-35b": 518.1, "qwen2-moe-a2.7b": 242.3, "deepseek-moe-16b": 270.1,
+            "dit-xl2": 10.8, "flux-dev": 190.4}
+TRAIN_CELLS = [("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "train_4k"), ("vit-s16", "cls_224"),
+               ("resnet-50", "cls_384"), ("dit-xl2", "train_256"), ("flux-dev", "train_1024")]
+
+
+def _train_state_bytes(prog) -> tuple[int, int]:
+    """(bytes of the train state ``ts`` from its specs, parameters)."""
+    ts = prog.arg_specs[0]
+    assert set(ts) == {"params", "state", "opt"} and set(ts["opt"]) == {"m", "v", "step"}
+    assert ts["opt"]["step"].shape == () and ts["opt"]["step"].dtype == torch.int32
+    n = common.param_count(ts["params"])
+    assert all(s.dtype == torch.float32 for s in common.tree_leaves(ts["params"]))
+    assert common.param_bytes(ts["opt"]["m"]) == common.param_bytes(ts["opt"]["v"]) == 4 * n
+    return common.param_bytes(ts), n
+
+
+@pytest.mark.parametrize("name,shape", TRAIN_CELLS)
+def test_training_kinds_build(name, shape):
+    """Each training kind builds at full width from specs alone (meta
+    tensors): the reference's argument shapes and dtypes, 12 bytes a
+    parameter of train state (16 with the gradients, ROADMAP's fit table),
+    and the reference's byte count."""
+    arch, arch_j = configs.get(name), jconfigs.get(name)
+    prog, prog_j = steps.build_cell(arch, shape), jsteps.build_cell(arch_j, shape)
+    assert (prog.name, prog.kind, prog.donate) == (prog_j.name, prog_j.kind, prog_j.donate)
+    assert prog.kind in ("train", "denoise_train", "classify_train") and prog.donate == (0,)
+    want = [jax.tree.leaves(a) for a in prog_j.abstract_args()]
+    ts = prog.arg_specs[0]
+    layout = ({**ts, "opt": {**ts["opt"], "m": ts["params"], "v": ts["params"]}}, prog.arg_specs[1])  # m, v: as params
+    for specs, like, w_arg in zip(prog.arg_specs, layout, want, strict=True):
+        g_arg = common.tree_leaves(common.abstract_tree(specs))
+        assert all(t.device.type == "meta" for t in g_arg)
+        assert [(_reference_layout(s, tuple(t.shape)), str(t.dtype).removeprefix("torch."))
+                for s, t in zip(common.tree_leaves(like), g_arg)] == [(tuple(s.shape), str(s.dtype)) for s in w_arg]
+    ts_bytes, n = _train_state_bytes(prog)
+    assert ts_bytes == sum(math.prod(s.shape) * s.dtype.itemsize for s in want[0])
+    assert ts_bytes == 12 * n + common.param_bytes(prog.arg_specs[0]["state"]) + 4
+    gb = 16 * n / 1e9
+    assert (round(gb, 1) <= 1.4) if name not in TRAIN_GB else gb == pytest.approx(TRAIN_GB[name], abs=0.05)
+
+
+@pytest.mark.parametrize("name", ["command-r-35b", "qwen2-moe-a2.7b", "efficientnet-b7", "swin-b", "squeezenet"])
+def test_train_state_bytes_fit_table(name):
+    """The archs the six cells above leave out, at their first training
+    shape: ROADMAP's fit table."""
+    arch = configs.get(name)
+    shape = next(s.name for s in arch.shapes if s.kind in ("train", "classify_train"))
+    _, n = _train_state_bytes(steps.build_cell(arch, shape))
+    gb = 16 * n / 1e9
+    assert (round(gb, 1) <= 1.4) if name not in TRAIN_GB else gb == pytest.approx(TRAIN_GB[name], abs=0.05)
 
 
 def test_unported_families_and_rules_raise():
