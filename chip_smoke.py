@@ -93,6 +93,16 @@ Phases (each raises on failure, so any failure exits non-zero):
   7. main shapes  each kernel against its plain version, untimed, at every
                   shape phases 4-6 gave it that phases 2-3 did not check
                   (the serving buckets, the front door's smoke models)
+ 7b. dryrun       launch/dryrun.run_cell at full size on the host CPU (the
+                  step traced on meta) for DRYRUN_CELLS, each held against
+                  the step diffusion_full or train_full measured on the card:
+                  ms a step at or above the roofline's step_s_lower_bound,
+                  and the estimated peak (flash_peak_per_device_gb for the
+                  denoise steps, which launch the flash kernel, the plain
+                  peak for training) within DRYRUN_PEAK_RTOL of the step's
+                  own peak: torch.cuda.max_memory_allocated over one step
+                  less what was resident beside its arguments; no kernel
+                  launches
   8. sim          the audited simulators on device="cuda": run_sim for every
                   registered policy at the reference's golden setting, the
                   four DP planners (jax_accuracy/jax_utility plan with tensor
@@ -141,7 +151,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   the cached programs hold; results equal in every field
  13. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
-                  and in phases 8-12), then the contract's last line
+                  and in phases 7b-12), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
 train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
@@ -342,6 +352,19 @@ TRAIN_ACCUM_LOSS_RTOL = 1e-5
 TRAIN_RESTART = ("resnet-50", "cls_224")
 TRAIN_RESTART_STEPS = 4
 TRAIN_CKPT = ROOT / "build" / "train_full_ckpt"  # (d)'s checkpoints, removed after
+# 7b. dryrun: the cells chip_smoke already runs at their published shapes with
+# nothing cut (train_full's two whole cases, diffusion_full's four), each
+# traced at full size on meta and held against a step measured on the card.
+# The peak limit was written into PERF.md before the first card run: the
+# trace counts every storage, but the card adds what it cannot see (the
+# caching allocator's 512-byte rounding, cuBLAS and cuDNN workspaces, the
+# flash wrapper's zero-padded head dim, DiT's 72 -> 128).  What the process
+# holds beside the step's arguments when the step begins (earlier phases'
+# cached tensors: 1.1-1.4 GB in a whole run) is not the step's and is taken
+# off the card's peak (PERF.md §6).
+DRYRUN_CELLS = (("resnet-50", "cls_224"), ("dit-xl2", "train_256"), ("dit-xl2", "gen_1024"),
+                ("dit-xl2", "gen_fast"), ("flux-dev", "gen_1024"), ("flux-dev", "gen_fast"))
+DRYRUN_PEAK_RTOL = 0.2
 GEMMS_PER_FORWARD = {"resnet-50": 54, "squeezenet": 26}  # 53 convs + head; 25 convs + classifier conv
 B7, SWIN = "efficientnet-b7", "swin-b"  # zoo_full's classifiers
 # stem + 3 for each of stage 0's four expand-1 blocks + 4 (expand, SE pair,
@@ -1618,6 +1641,7 @@ def phase_diffusion_full(torch, A, configs, common, steps, diffusion, flash_ops,
             "attention matrices at their own fan-in; zero-init leaves drawn as fan-in normals)")
         rows = report[name] = {"layers": layers, "shapes": {}}
         plains = {}
+        earlier_peak = 0  # the phase's own peak reading, kept across step_memory's resets
         for shape_name in DIFF_SHAPES:
             shape, cell = arch.shape(shape_name), cells[shape_name]
             batch = A.make_inputs(arch, shape, SEED, device=DEVICE)
@@ -1642,6 +1666,10 @@ def phase_diffusion_full(torch, A, configs, common, steps, diffusion, flash_ops,
             tokens = (shape.img // 8 // cfg.patch) ** 2
             rows["shapes"][shape_name] = {"batch": shape.batch, "tokens": tokens, "launches": launches, "ms": ms,
                                           "steps": shape.steps, "rel": rel, "control": control, "scale": scale}
+            if DEVICE == "cuda" and (name, shape_name) in DRYRUN_CELLS:
+                mem = rows["shapes"][shape_name]["memory"] = step_memory(torch, lambda: cell(params, batch),
+                                                                         {"params": params, "batch": batch})
+                earlier_peak = max(earlier_peak, mem["earlier_peak_bytes"])
             log(f"diffusion_full: {name} {shape_name} (batch {shape.batch}, {shape.img // 8}² latents, {tokens} image "
                 f"tokens): {launches} flash launches a forward; prediction vs the f32-upcast plain attention "
                 f"{rel:.4%} of max|prediction| {scale:.4g} (limit {DIFF_RTOL:.2%}); the bf16-score plain attention's "
@@ -1692,7 +1720,7 @@ def phase_diffusion_full(torch, A, configs, common, steps, diffusion, flash_ops,
         check(launches == n * layers, f"{name} request launched the flash kernel {launches} times, want {n * layers}")
         del params
         if DEVICE == "cuda":
-            rows["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rows["peak_gb"] = max(earlier_peak, torch.cuda.max_memory_allocated()) / 1e9
             log(f"diffusion_full: {name}: peak card memory {rows['peak_gb']:.2f} GB")
     return report
 
@@ -1964,6 +1992,12 @@ def phase_train_full(torch, configs, common, steps, diffusion, layers, data, opt
         log(f"train_full: {name} (a) losses {', '.join(f'{x:.5g}' for x in losses)} over {TRAIN_STEPS} steps on one "
             f"batch (lr {adamw.lr}); {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}, host clock to the loss's "
             f"read), {per_s:.1f} {unit}")
+        earlier_peak = 0
+        if DEVICE == "cuda" and (name, shape_name) in DRYRUN_CELLS:
+            check(depth is None and accum == 1 and batch_size == configs.get(name).shape(shape_name).batch,
+                  f"{name}: dryrun compares the published {shape_name}, but train_full cuts it")
+            row["memory"] = step_memory(torch, lambda: float(cell(ts, batch)[1]["loss"]), {"ts": ts, "batch": batch})
+            earlier_peak = row["memory"]["earlier_peak_bytes"]
         if name in TRAIN_PROFILED and DEVICE == "cuda":
             busy, top = device_busy(torch, lambda: cell(ts, batch), warm=False)
             row["busy_ms"], row["busy_share"] = busy, busy / ms
@@ -1999,7 +2033,7 @@ def phase_train_full(torch, configs, common, steps, diffusion, layers, data, opt
             ts = None  # (a)'s state goes before (c) draws its three
             row["accum_check"] = train_accumulation(torch, common, steps, cell, arch, adamw, batch)
         if DEVICE == "cuda":
-            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            row["peak_gb"] = max(earlier_peak, torch.cuda.max_memory_allocated()) / 1e9
             log(f"train_full: {name}: peak card memory {row['peak_gb']:.2f} GB")
         ts = batch = params = mb = None
     if DEVICE == "cuda":
@@ -2050,6 +2084,70 @@ def train_accumulation(torch, common, steps, cell, arch, adamw, batch) -> dict:
 
 
 # The kernel each model's calibration must be timed through (Swin-B: none).
+# ---------------------------------------------------------------------------
+# 7b. dryrun: the dry run's estimates against measured steps
+# ---------------------------------------------------------------------------
+
+
+def dryrun_readings(diff_report: dict, train_report: dict) -> dict:
+    """(arch, shape) -> {"ms", "memory"} of every DRYRUN_CELLS step that
+    diffusion_full and train_full measured on the card."""
+    out = {}
+    for name, r in diff_report.items():
+        for shape_name, p in r["shapes"].items():
+            if "memory" in p:
+                out[(name, shape_name)] = {"ms": p["ms"], "memory": p["memory"]}
+    for name, r in train_report.items():
+        if "memory" in r:
+            out[(name, r["shape"])] = {"ms": r["ms"], "memory": r["memory"]}
+    return out
+
+
+def phase_dryrun(dryrun, readings: dict, smi: str) -> dict:
+    """``dryrun.run_cell`` at full size (on the host CPU: the step traced on
+    meta, nothing allocated on the card) for each of DRYRUN_CELLS, held
+    against ``readings``: the measured ms a step at or above the roofline's
+    ``step_s_lower_bound``, and the estimated peak within DRYRUN_PEAK_RTOL of
+    the measured one (the flash trace's for a denoise step, which launches
+    the flash kernel; the plain trace's for training, which launches none).
+    The measured peak is the step's own: ``max_memory_allocated`` over the
+    step less what the process held beside the step's arguments when it
+    began (earlier phases' cached tensors, kernel workspaces), as the
+    estimate is the arguments and the step's temporaries.
+    Returns, per cell, the estimate and the reading."""
+    check(set(readings) == set(DRYRUN_CELLS), f"dryrun: steps not measured on the card: "
+          f"{sorted(set(DRYRUN_CELLS) - set(readings))}")
+    report = {}
+    for name, shape_name in DRYRUN_CELLS:
+        rec = dryrun.run_cell(name, shape_name, out_dir=None)
+        got = readings[(name, shape_name)]
+        mem = rec["memory"]
+        key = "flash_peak_bytes" if rec["kind"] == "denoise_step" else "peak_bytes"
+        card = got["memory"]
+        beside = card["resident_bytes"] - card["argument_bytes"]
+        est, peak = mem[key], card["peak_bytes"] - beside
+        bound_ms = rec["roofline"]["step_s_lower_bound"] * 1e3
+        rel = (est - peak) / peak
+        row = report[(name, shape_name)] = {"ms": got["ms"], "bound_ms": bound_ms, "ratio": got["ms"] / bound_ms,
+                                            "estimate_gb": est / 1e9, "peak_gb": peak / 1e9, "rel": rel}
+        log(f"dryrun: {name}/{shape_name} ({rec['kind']}; traced on meta in {rec['lower_s']:.2f} + "
+            f"{rec['compile_s']:.2f} s): FLOPs {rec['flops_jaxpr']:.4e} (products {rec['dot_flops']:.4e}, model "
+            f"{rec['model_flops']:.4e}), bytes {rec['bytes_jaxpr']:.4e} plain / {rec['bytes_jaxpr_flash']:.4e} flash; "
+            f"roofline {rec['roofline']['bottleneck']} compute {rec['roofline']['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rec['roofline']['memory_s'] * 1e3:.3f} ms; measured {got['ms']:.2f} ms a step = "
+            f"{row['ratio']:.2f} x the bound {bound_ms:.3f} ms; peak {key} {est / 1e9:.3f} GB against the step's "
+            f"{peak / 1e9:.3f} GB ({rel:+.2%}, limit {DRYRUN_PEAK_RTOL:.0%}): max_memory_allocated "
+            f"{card['peak_bytes'] / 1e9:.3f} GB over one step less {beside / 1e9:.3f} GB resident beside its "
+            f"arguments (arguments {card['argument_bytes'] / 1e9:.3f} GB on the card, {mem['argument_bytes'] / 1e9:.3f} "
+            f"GB traced) ({smi})")
+        check(rec["fits"], f"dryrun: {name}/{shape_name} does not fit, though it ran on the card")
+        check(got["ms"] >= bound_ms, f"dryrun: {name}/{shape_name} measured {got['ms']:.3f} ms under its roofline "
+              f"bound {bound_ms:.3f} ms")
+        check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dryrun: {name}/{shape_name} estimated peak {est / 1e9:.3f} GB is "
+              f"{rel:+.2%} from the measured {peak / 1e9:.3f} GB")
+    return report
+
+
 KERNEL_OF = {"resnet-50": "int8_matmul", "squeezenet": "int8_matmul", VIT: "flash_attention",
              B7: "int8_matmul", SWIN: None}
 
@@ -2309,6 +2407,32 @@ def batch_scenarios(session, core, spec: dict, grid: dict, every: int = 1, limit
     return base, [core.sim_batch.BatchScenario(stream=s.stream, n_frames=s.n_frames, params=s.policy.params,
                                                rtt=s.trace.rtt_s, bw_segments=s.trace.segments(),
                                                workload=s.workload) for s in specs]
+
+
+def step_memory(torch, step, args) -> dict:
+    """One call of ``step`` with its arguments ``args`` (trees of dicts)
+    resident, ended by a synchronize, and the card's memory around it: the
+    bytes allocated before it, those of its arguments' distinct storages,
+    the peak during it (the peak statistics reset just before), and the
+    peak before that reset, which the calling phase keeps as its own."""
+    storages = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+
+    walk(args)
+    torch.cuda.synchronize()
+    earlier = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    return {"resident_bytes": resident, "argument_bytes": sum(storages.values()),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "earlier_peak_bytes": earlier}
 
 
 def timed(torch, fn):
@@ -3665,7 +3789,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.npu_matmul import ops, ref
-    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch import dryrun, serve, steps, train
     from repro_torch.models import common, convnets, diffusion, lm, vision
     from repro_torch.models import layers as L
     from repro_torch.serving.calibrate import _median_s
@@ -3717,8 +3841,11 @@ def main() -> int:
         serving_int8, serving_flash = phase("serving", lambda: phase_serving(torch, ops, flash_ops, serve, session))
     more_gemms, more_flash = phase("main shapes", lambda: phase_main_shapes(
         torch, ops, ref, flash_ops, flash_ref, gemms - gemm_rows.keys(), attns - flash_rows.keys()))
-    # The simulators run on profiles, not on models: no kernel launches.
-    for name, fn in (("sim", lambda: phase_sim(torch, core, session, scenariogen, t_ms, smi)),
+    readings = dryrun_readings(diff_report, train_report)
+    # The dry run traces on meta and the simulators run on profiles, not on
+    # models: no kernel launches.
+    for name, fn in (("dryrun", lambda: phase_dryrun(dryrun, readings, smi)),
+                     ("sim", lambda: phase_sim(torch, core, session, scenariogen, t_ms, smi)),
                      ("sweep", lambda: phase_sweep(torch, core, session, smi)),
                      ("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
                      ("fleet", lambda: phase_fleet(torch, core, session, smi)),

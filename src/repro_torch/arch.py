@@ -16,7 +16,7 @@ import torch
 
 from .device import resolve_device
 from .models import convnets, diffusion, lm, vision
-from .models.common import ParamSpec, param_count, spec
+from .models.common import ParamSpec, abstract_tree, param_count, spec
 
 _CLASSIFIERS = ("vit", "swin", "resnet", "effnet", "squeezenet")
 
@@ -145,8 +145,11 @@ def make_inputs(arch: Arch, shape: ShapeSpec, seed: int | torch.Generator = 0, *
     (LM) or the class count; a diffusion step's ``t`` uniform in [0.02,
     0.98], ``dt`` filled with 0.02, ``guidance`` with 4.0; every other float
     standard normal.  Inputs draw from ``seed`` (an int, or a generator on
-    ``device``) in sorted-name order."""
+    ``device``) in sorted-name order.  On ``meta`` they have shapes and no
+    values."""
     device = resolve_device(device)
+    if device.type == "meta":
+        return abstract_tree(input_specs(arch, shape))
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=device).manual_seed(seed)
     out = {}
     for name, s in sorted(input_specs(arch, shape).items()):

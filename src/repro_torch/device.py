@@ -2,7 +2,9 @@
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; asking for
 the card on a machine without one raises instead of quietly running on the
-CPU.  Tests pass ``device="cpu"`` explicitly.
+CPU.  Tests pass ``device="cpu"`` explicitly.  ``"meta"`` sizes a step
+without running it (``launch/dryrun``): tensors have shapes and dtypes and
+no values, and nothing is allocated.
 """
 from __future__ import annotations
 
@@ -16,6 +18,6 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}; want 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}; want 'cuda', 'cpu' or 'meta'")
     return dev

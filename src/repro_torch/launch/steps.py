@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from .. import arch as A
 from ..device import resolve_device
 from ..models import diffusion, lm
-from ..models.common import ParamSpec, init_tree, spec, tree_leaves, tree_map
+from ..models.common import ParamSpec, abstract_tree, init_tree, spec, tree_leaves, tree_map
 from ..train import optim
 
 
@@ -56,8 +56,11 @@ class CellProgram:
     def init_arg(self, i: int, seed: int = 0, device: torch.device | str = "cuda"):
         """Argument ``i``, drawn on ``device`` from seed ``seed + 7919 * i``
         (the reference folds ``i`` into its key), so each argument can be made
-        alone and equals its entry in ``init_args``."""
+        alone and equals its entry in ``init_args``.  On ``meta``: shapes, no
+        values."""
         device = resolve_device(device)
+        if device.type == "meta":
+            return abstract_tree(self.arg_specs[i])
         gen = torch.Generator(device=device).manual_seed(seed + 7919 * i)
         return init_tree(gen, self.arg_specs[i], device=device)
 

@@ -21,6 +21,11 @@ whole cache with a validity mask: the flash kernel takes its lengths from
 the host, and a decode step's length lives on the device.  The cache is
 written in place (the reference donates it) at a tensor index, so a decode
 step makes no host read.
+
+On ``meta`` tensors (``launch/dryrun`` sizing a step) ``_attend`` takes the
+reference's branches, the program without the kernel; under
+``flash_accounting`` both attentions return ``_flash_stub`` instead, which
+stands for the kernel's HBM bytes as the reference's stub does.
 """
 from __future__ import annotations
 
@@ -160,14 +165,44 @@ def _sdpa(c: AttnCfg, q, k, v, mask=None):
 BLOCKWISE_THRESHOLD = 4096
 
 
+# --- flash-kernel accounting -------------------------------------------------
+# The flash kernel keeps its scores and softmax on chip; their HBM bytes do
+# not exist.  launch/analysis measures that by tracing the step again with
+# the attention replaced by a phantom of the right shape and dtype (FLOPs
+# come from the plain trace, only bytes and memory from this one), as the
+# reference does for its TPU kernel.
+_FLASH_ACCOUNTING: list[bool] = []
+
+
+class flash_accounting:
+    def __enter__(self):
+        _FLASH_ACCOUNTING.append(True)
+        return self
+
+    def __exit__(self, *exc):
+        _FLASH_ACCOUNTING.pop()
+
+
+def _flash_stub(q, k, v):
+    """Phantom attention: q's shape and dtype, a data dependence on k and v
+    through one element each, and almost no intermediate bytes (the
+    reference's arithmetic: one-element slices, times 0, plus 1, cast,
+    times q)."""
+    dep = (torch.sum(k[:, :1, :1, :1]) + torch.sum(v[:, :1, :1, :1])) * 0.0
+    return q * (1.0 + dep).to(q.dtype)
+
+
 def _attend(c: AttnCfg, q, k, v, mask=None):
     """softmax(q·kᵀ/√hd, mask)·v, q [B,S,H,hd], k/v [B,T,KH,hd] -> [B,S,H,hd].
-    The flash kernel where no mask is given and no autograd graph is
-    needed (reached through the module attribute ``flash_ops.attention``);
-    otherwise the reference's branches."""
+    ``_flash_stub`` under ``flash_accounting``.  Otherwise the flash kernel
+    where no mask is given, no autograd graph is needed and the tensors
+    hold values (reached through the module attribute
+    ``flash_ops.attention``); else the reference's branches."""
+    if _FLASH_ACCOUNTING:
+        return _flash_stub(q, k, v)
     S = q.shape[1]
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if mask is None and not needs_grad:
+    if mask is None and not needs_grad and q.device.type != "meta":
         return flash_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=c.causal)
     if S > BLOCKWISE_THRESHOLD and mask is None:
         return blockwise_sdpa(q, k, v, causal=c.causal)
@@ -232,14 +267,19 @@ def attention_decode(
         vq, vs = quantize_kv(v_new)
         for buf, new in ((cache_k, kq), (cache_v, vq), (k_scale, ks), (v_scale, vs)):
             buf.index_copy_(1, idx, new)
-        k_full = dequantize_kv(cache_k, k_scale, q.dtype)
-        v_full = dequantize_kv(cache_v, v_scale, q.dtype)
     else:
         cache_k.index_copy_(1, idx, k_new.to(cache_k.dtype))
         cache_v.index_copy_(1, idx, v_new.to(cache_v.dtype))
-        k_full, v_full = cache_k.to(q.dtype), cache_v.to(q.dtype)
-    valid = (torch.arange(T, device=x.device) <= length).reshape(1, 1, 1, 1, T)
-    out = _sdpa(c, q, k_full, v_full, valid)
+    if _FLASH_ACCOUNTING:  # a kernel reads the cache at its stored width (int8 when quantized)
+        out = _flash_stub(q, cache_k, cache_v)
+    else:
+        if quantized:
+            k_full = dequantize_kv(cache_k, k_scale, q.dtype)
+            v_full = dequantize_kv(cache_v, v_scale, q.dtype)
+        else:
+            k_full, v_full = cache_k.to(q.dtype), cache_v.to(q.dtype)
+        valid = (torch.arange(T, device=x.device) <= length).reshape(1, 1, 1, 1, T)
+        out = _sdpa(c, q, k_full, v_full, valid)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     if c.bias:
         y = y + p["bo"].to(x.dtype)
