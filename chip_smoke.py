@@ -149,9 +149,23 @@ Phases (each raises on failure, so any failure exits non-zero):
                   (core/sweep_shard), then with it twice, under
                   CompileCounter: captures, hits, wall seconds, the memory
                   the cached programs hold; results equal in every field
- 13. report       wall seconds of every phase, the {"kernels": [...]} line
+ 13. mesh         MESH_RANKS ranks of the port (spawned processes, a gloo
+                  group through a FileStore) sharing the card: (a) the sweep
+                  goldens, an online and a fleet golden grid through
+                  Session.run_sweep, each group's lanes spread over the
+                  ranks (core/sweep_shard.run_sharded) and gathered: every
+                  rank's results equal to the goldens and to phases 9-11's
+                  one-rank results field for field; (b) the SWEEP_TRACE
+                  half of MESH_LARGE's full-width grid (500 points x 900
+                  frames) on the ranks, stats equal to the sweep phase's,
+                  ms per point of each; (c) restore_resharded of
+                  qwen3-0.6b's SMOKE train state, saved here, onto a (2, 2)
+                  mesh under train_rules: every local shard the saved
+                  array's slice; (d) MeshRules.constrain of a DTensor on the
+                  card, Shard(0) -> Replicate, exact; no kernel launch
+ 14. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
-                  and in phases 7b-12), then the contract's last line
+                  and in phases 7b-13), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
 train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
@@ -168,6 +182,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -502,6 +517,24 @@ FLEET_WIDE = ("offload", "max_accuracy", "max_utility")  # 1008 points; the othe
 FLEET_WIDE_PARAMS = {"max_accuracy": {"grid": 10e-3}, "max_utility": {"alpha": 150.0}}  # the bench's grid
 FLEET_BASE = {"trace": {"kind": "constant", "mbps": 6.0}, "fleet": {"n_clients": 2, "capacity": 4}}
 FLEET_SAMPLE_EVERY = 50  # every 50th full-width point against the loop and the host CPU
+
+# The mesh phase: MESH_RANKS ranks of the port, each its own spawned process
+# on cuda:{rank % device_count} (all of them on the one card here), joined
+# in a gloo group through a FileStore.  Each runs (a) the sweep phase's
+# golden grids, MESH_ONLINE's online golden grid and MESH_FLEET's fleet
+# golden grid, (b) the SWEEP_TRACE half of MESH_LARGE's full-width grid
+# (full_grids' second: 500 points over the whole stream, every segment of the
+# trace), (c) restore_resharded of MESH_CKPT's SMOKE train state onto a
+# (2, 2) mesh under train_rules and (d) a constrain round trip of a DTensor
+# on the card; the results must equal the earlier phases' one-rank results
+# (ONE_RANK) and the goldens.  The ranks must end within MESH_TIMEOUT.
+MESH_RANKS = 4
+MESH_TIMEOUT = 120  # seconds for the ranks, start to end: the phase's budget
+MESH_ONLINE = "max_utility/lattice"
+MESH_FLEET = "max_accuracy/planner"
+MESH_LARGE = "max_utility"
+MESH_CKPT = ("qwen3-0.6b", "train_4k")
+ONE_RANK: dict = {}  # filled by the sweep, online and fleet phases
 
 
 def log(msg: str) -> None:
@@ -2459,6 +2492,7 @@ def phase_sweep(torch, core, session, smi: str) -> None:
         log(f"sweep: {name}: port {table.get(name)} reference {SWEEP_GOLDENS[name]}")
     check(table.keys() == SWEEP_GOLDENS.keys(), f"sweep cases {sorted(table)} != SWEEP_GOLDENS")
     check(not bad, f"sweep results differ from the reference's at {bad}")
+    ONE_RANK["sweep"] = table
     bit_equal = sum(g == w for n in table for g, w in zip(table[n], SWEEP_GOLDENS[n]))
     log(f"sweep: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
         f"contract on device={DEVICE} ({bit_equal} bit-equal in every field)")
@@ -2468,8 +2502,9 @@ def phase_sweep(torch, core, session, smi: str) -> None:
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()  # what earlier phases still hold
-        first, s1 = timed(torch, lambda: [batched(session.ScenarioSpec.from_json(sp), session.SweepGrid.from_json(g))
-                                          for sp, g in grids])
+        halves = [timed(torch, lambda sp=sp, g=g: batched(session.ScenarioSpec.from_json(sp),
+                                                          session.SweepGrid.from_json(g))) for sp, g in grids]
+        first, s1 = [r for r, _ in halves], sum(s for _, s in halves)
         second, s2 = timed(torch, lambda: [batched(session.ScenarioSpec.from_json(sp), session.SweepGrid.from_json(g))
                                            for sp, g in grids])
         peak = (torch.cuda.max_memory_allocated() - held) / 2**20 if DEVICE == "cuda" else float("nan")
@@ -2479,6 +2514,8 @@ def phase_sweep(torch, core, session, smi: str) -> None:
               f"{name}: {n} full-width points")
         check(sweep_rows(first[0]) + sweep_rows(first[1]) == sweep_rows(second[0]) + sweep_rows(second[1]),
               f"{name}: two runs of the same grid differ")
+        if name == MESH_LARGE:
+            ONE_RANK["large"] = ([stats_rows(p.streams) for p in first[-1].points], halves[-1][1])
         groups = [g for r in second for g in r.meta["groups"]]
         rounds = [g["rounds"] for g in groups]
         reads = sum(g["host_reads"] for g in groups)
@@ -2652,6 +2689,7 @@ def phase_online(torch, core, session, scenariogen, smi: str) -> None:
         log(f"online: {name}: port {table.get(name)} reference {ONLINE_GOLDENS[name]}")
     check(table.keys() == ONLINE_GOLDENS.keys(), f"online cases {sorted(table)} != ONLINE_GOLDENS")
     check(not bad, f"online results differ from the reference's at {bad}")
+    ONE_RANK["online"] = table[MESH_ONLINE]
     bit_equal = sum(g == w for n in table for g, w in zip(table[n], ONLINE_GOLDENS[n]))
     log(f"online: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
         f"contract on device={DEVICE} ({bit_equal} bit-equal in every field, estimated_bps in all)")
@@ -2813,6 +2851,7 @@ def phase_fleet(torch, core, session, smi: str) -> None:
         log(f"fleet: {name}: port {table.get(name)} reference {FLEET_GOLDENS[name]}")
     check(table.keys() == FLEET_GOLDENS.keys(), f"fleet cases {sorted(table)} != FLEET_GOLDENS")
     check(not bad, f"fleet results differ from the reference's at {bad}")
+    ONE_RANK["fleet"] = table[MESH_FLEET]
     bit_equal = sum(g == w for n in table for g, w in zip(table[n], FLEET_GOLDENS[n]))
     log(f"fleet: {sum(map(len, table.values()))} golden points of {len(table)} cases hold the reference's "
         f"contract on device={DEVICE} ({bit_equal} bit-equal in every field) in {time.perf_counter() - t_phase:.1f} s")
@@ -2949,6 +2988,208 @@ def phase_cache(torch, core, session, smi: str) -> None:
         f"{cold.hits} hits in {s_cold:.3f} s, then {warm.captures} captures, {warm.hits} hits in {s_warm:.3f} s; "
         f"results equal in every field; the cached programs hold {held_reserved:.1f} MiB reserved "
         f"({held_allocated:.1f} MiB allocated: buffers and round state) in {len(shard.PROGRAMS)} programs ({smi})")
+
+
+def mesh_rank(rank: int, world: int, workdir: str, settings: dict) -> None:
+    """One rank of the mesh phase, in a spawned process: takes the parent's
+    ``settings`` (this module's constants, which a rehearsal on the CPU
+    cuts), joins the gloo group, runs :func:`mesh_checks` and writes its
+    result as ``rank{rank}.json`` in ``workdir``.  It catches nothing: a
+    failure is the process's non-zero exit.  After a barrier and the
+    group's teardown it leaves with ``os._exit``: gloo's teardown during
+    interpreter exit aborts a rank now and then (``terminate called without
+    an active exception``)."""
+    import torch
+    import torch.distributed as dist
+
+    globals().update(settings)
+    sys.path.insert(0, str(ROOT / "src"))
+    if DEVICE == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(workdir) / "store"), world), rank=rank,
+                            world_size=world)
+    out = mesh_checks(torch, rank, world, Path(workdir))
+    dist.barrier()
+    dist.destroy_process_group()
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(out))
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
+    """(a)-(d) of the mesh phase on this rank; what the parent compares."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch import checkpoint as ck
+    from repro_torch import configs, scenariogen, session
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.npu_matmul import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.sharding import MeshRules, train_rules
+
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+    groups, seconds = [], {}
+
+    def run(spec, grid, mode="auto"):
+        report = session.Session(session.ScenarioSpec.from_json(spec), device=DEVICE).run_sweep(
+            session.SweepGrid.from_json(grid), backend="batched", mode=mode)
+        groups.extend({k: g.get(k) for k in ("lanes", "world", "rank_lanes", "rounds", "host_reads")}
+                      for g in report.meta["groups"])
+        return report
+
+    t = time.perf_counter()
+    out = {"rank": rank, "device": torch.cuda.current_device() if DEVICE == "cuda" else None,
+           "sweep": {name: sweep_rows(run(spec, grid)) for name, (spec, grid) in sweep_cases().items()},
+           "online": online_rows(run(*online_cases(scenariogen)[MESH_ONLINE], mode="online")),
+           "fleet": fleet_rows(run(*fleet_cases()[MESH_FLEET]))}
+    seconds["goldens"] = time.perf_counter() - t
+    large, seconds["large"] = timed(torch, lambda: run(*full_grids(MESH_LARGE)[-1]))
+    out["large"] = [stats_rows(p.streams) for p in large.points]
+
+    # (c) the parent's checkpoint onto a (2, 2) mesh: every local shard is
+    # the slice of the saved array that the leaf's placements give this
+    # rank's mesh coordinate, nested in mesh-dim order.
+    t = time.perf_counter()
+    name, shape = MESH_CKPT
+    specs = steps.build_cell(configs.get(name, smoke=True), shape).arg_specs[0]
+    mesh = make_host_mesh(data=2, model=2, device=DEVICE)
+    rules = MeshRules(mesh, train_rules(mesh))
+    like = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=DEVICE), specs)
+    restored, _ = ck.restore_resharded(workdir / "ckpt", 1, like, rules.tree_shardings(specs))
+    coord = mesh.device_mesh.get_coordinate()
+    equal = sharded = 0
+    for key, leaf in zip(ck.store._paths(specs), tree_leaves(restored)):
+        want = torch.from_numpy(np.load(workdir / "ckpt" / f"step_{1:08d}" / f"{key}.npy"))
+        for i, p in enumerate(leaf.placements):
+            if p.is_shard():
+                size = want.shape[p.dim] // mesh.axis_sizes[i]
+                want = want.narrow(p.dim, coord[i] * size, size)
+        local = leaf.to_local()
+        equal += local.device.type == DEVICE and torch.equal(local.cpu(), want)
+        sharded += tuple(local.shape) != tuple(leaf.shape)
+    out["restore"] = {"coord": coord, "leaves": len(tree_leaves(specs)), "equal": equal, "sharded": sharded}
+    seconds["restore"] = time.perf_counter() - t
+
+    # (d) constrain on the card: replicated -> Shard(0) on data -> replicated.
+    t = time.perf_counter()
+    mesh = make_host_mesh(data=world, model=1, device=DEVICE)
+    rules = MeshRules(mesh, train_rules(mesh))
+    x = torch.arange(float(8 * world * 16), device=DEVICE).reshape(8 * world, 16)
+    split = rules.constrain(distribute_tensor(x, mesh.device_mesh, [Replicate(), Replicate()], src_data_rank=None),
+                            ("batch", None))
+    whole = rules.constrain(split, (None, None))
+    out["constrain"] = {"placements": [str(split.placements), str(whole.placements)],
+                        "split": split.device.type == DEVICE and torch.equal(split.to_local(), x[8 * rank: 8 * rank + 8]),
+                        "whole": whole.device.type == DEVICE and torch.equal(whole.to_local(), x)}
+    seconds["constrain"] = time.perf_counter() - t
+    out.update(groups=groups, seconds=seconds,
+               launches=[ops.int8_matmul.launches, flash_ops.flash_attention.launches])
+    return out
+
+
+def check_ranks(torch, core, ranks: list) -> None:
+    """The parent's verdict on the mesh phase's rank results (``ranks``, one
+    :func:`mesh_checks` dict a rank) against the goldens and ONE_RANK."""
+    tol, multi_tol = core.audit.AUDIT_TOL, core.sim_multi_batch.MULTI_TOL
+    large_rows = ONE_RANK["large"][0]
+    for r in ranks:
+        rank = r["rank"]
+        check(DEVICE != "cuda" or r["device"] == rank % torch.cuda.device_count(),
+              f"mesh: rank {rank} ran on cuda:{r['device']}")
+        bad = sorted(n for n in SWEEP_GOLDENS if not sweep_agree(n, r["sweep"].get(n, []), SWEEP_GOLDENS[n], tol))
+        check(not bad, f"mesh: rank {rank}'s sweep results differ from the reference's at {bad}")
+        check(r["sweep"] == ONE_RANK["sweep"], f"mesh: rank {rank}'s sweep goldens differ from one rank's")
+        check(online_agree(r["online"], ONLINE_GOLDENS[MESH_ONLINE], tol) and r["online"] == ONE_RANK["online"],
+              f"mesh: rank {rank}'s {MESH_ONLINE} online grid differs")
+        check(fleet_agree(MESH_FLEET, r["fleet"], FLEET_GOLDENS[MESH_FLEET], multi_tol)
+              and r["fleet"] == ONE_RANK["fleet"], f"mesh: rank {rank}'s {MESH_FLEET} fleet grid differs")
+        check(r["large"] == large_rows, f"mesh: rank {rank}'s {MESH_LARGE} full-width stats differ from one rank's")
+        lanes = [g["lanes"] for g in r["groups"]]
+        check(all(g["world"] == MESH_RANKS and g["rank_lanes"] == -(-g["lanes"] // MESH_RANKS) for g in r["groups"]),
+              f"mesh: rank {rank} ran a group unsharded")
+        check(any(n < MESH_RANKS for n in lanes) and any(n > MESH_RANKS and n % MESH_RANKS for n in lanes)
+              and any(n % MESH_RANKS == 0 for n in lanes),
+              f"mesh: rank {rank}'s groups miss a lane count below, off or on a multiple of {MESH_RANKS}: {lanes}")
+        rs = r["restore"]
+        check(rs["equal"] == rs["leaves"] and rs["sharded"] > 0,
+              f"mesh: rank {rank} restored {rs['equal']} of {rs['leaves']} leaves as the saved slices "
+              f"({rs['sharded']} sharded)")
+        c = r["constrain"]
+        check(c["placements"] == ["(Shard(dim=0), Replicate())", "(Replicate(), Replicate())"]
+              and c["split"] and c["whole"], f"mesh: rank {rank}'s constrain round trip: {c}")
+        check(r["launches"] == [0, 0], f"mesh: rank {rank} launched a model kernel: {r['launches']}")
+    check(sorted(r["rank"] for r in ranks) == list(range(MESH_RANKS)), "mesh: a rank's result is missing")
+    check(sorted(tuple(r["restore"]["coord"]) for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          "mesh: the restore's coordinates do not cover the (2, 2) mesh")
+
+
+def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> list:
+    """MESH_RANKS spawned ranks of the port share the card (see MESH_RANKS):
+    every rank's results must equal the goldens and the earlier phases'
+    one-rank results, its groups' lanes must spread over the ranks, its
+    restored shards must be the saved arrays' slices, its constrain round
+    trip exact, and it must launch neither kernel (:func:`check_ranks`).
+    Returns the ranks' results."""
+    import multiprocessing
+    import tempfile
+
+    from repro_torch import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    if len(ONE_RANK) < 4:  # the phase run alone: the one-rank results here
+        batched = lambda spec, grid, mode="auto": session.Session(  # noqa: E731
+            session.ScenarioSpec.from_json(spec), device=DEVICE).run_sweep(
+            session.SweepGrid.from_json(grid), backend="batched", mode=mode)
+        ONE_RANK["sweep"] = {name: sweep_rows(batched(*case)) for name, case in sweep_cases().items()}
+        ONE_RANK["online"] = online_rows(batched(*online_cases(scenariogen)[MESH_ONLINE], mode="online"))
+        ONE_RANK["fleet"] = fleet_rows(batched(*fleet_cases()[MESH_FLEET]))
+        large, s1 = timed(torch, lambda: batched(*full_grids(MESH_LARGE)[-1]))
+        ONE_RANK["large"] = ([stats_rows(p.streams) for p in large.points], s1)
+    name, shape = MESH_CKPT
+    with tempfile.TemporaryDirectory() as workdir:
+        cell = steps.build_cell(configs.get(name, smoke=True), shape)
+        ck.save(Path(workdir) / "ckpt", 1, cell.init_arg(0, SEED, "cpu"))
+        ctx = multiprocessing.get_context("spawn")
+        settings = {k: v for k, v in globals().items() if k.isupper() and k != "ONE_RANK"}
+        procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, workdir, settings)) for r in range(MESH_RANKS)]
+        t_ranks = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(max(MESH_TIMEOUT - (time.perf_counter() - t_ranks), 0.0))
+            s_ranks = time.perf_counter() - t_ranks
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            check(not alive, f"mesh: ranks {alive} still running after {MESH_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * MESH_RANKS, f"mesh: the ranks exited {codes}")
+        ranks = [json.loads((Path(workdir) / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+
+    check_ranks(torch, core, ranks)
+    large_rows, s1 = ONE_RANK["large"]
+    n = len(large_rows)
+    s4 = max(r["seconds"]["large"] for r in ranks)
+    lane_counts = sorted({g["lanes"] for g in ranks[0]["groups"]})
+    log(f"mesh: {MESH_RANKS} ranks sharing the card ({smi}): every rank holds the sweep goldens "
+        f"({sum(map(len, ONE_RANK['sweep'].values()))} points), {MESH_ONLINE} online and {MESH_FLEET} fleet, equal "
+        f"to one rank's field for field; groups of {lane_counts} lanes; {MESH_LARGE} {n} points x {SWEEP_FRAMES} "
+        f"frames under SWEEP_TRACE: {1e3 * s4 / n:.3f} ms/point on {MESH_RANKS} ranks (first call, slowest rank) "
+        f"against {1e3 * s1 / n:.3f} on one (the sweep phase's first call), stats equal; restore_resharded of {name} SMOKE "
+        f"({ranks[0]['restore']['leaves']} leaves, {ranks[0]['restore']['sharded']} sharded on each rank) onto (2, 2) "
+        f"equal to the saved slices; constrain Shard(0) -> Replicate on the card exact; no kernel launch; ranks "
+        f"{s_ranks:.1f} s (" + ", ".join(f"{k} {max(r['seconds'][k] for r in ranks):.1f}"
+                                   for k in ranks[0]["seconds"]) + f" s, slowest rank); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return ranks
 
 
 # The reference's numbers for every case of sim_cases(), computed by
@@ -3849,7 +4090,8 @@ def main() -> int:
                      ("sweep", lambda: phase_sweep(torch, core, session, smi)),
                      ("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
                      ("fleet", lambda: phase_fleet(torch, core, session, smi)),
-                     ("cache", lambda: phase_cache(torch, core, session, smi))):
+                     ("cache", lambda: phase_cache(torch, core, session, smi)),
+                     ("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))):
         torch.cuda.empty_cache()
         ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
         phase(name, fn)

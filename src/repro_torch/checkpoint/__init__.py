@@ -3,5 +3,6 @@ from .store import (  # noqa: F401
     CheckpointMeta,
     latest_step,
     restore,
+    restore_resharded,
     save,
 )

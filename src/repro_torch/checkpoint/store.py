@@ -17,8 +17,9 @@ Convolution weights are stored in the port's OIHW layout, not the
 reference's HWIO, so a classifier's checkpoint is the port's own.  Leaves
 are f32 or integer (a train state's); numpy has no bf16.
 
-The reference's ``restore_resharded`` (restore onto a new mesh) is not
-ported: the port runs on one card (ROADMAP item 8).
+``restore_resharded`` restores onto a new mesh (an elastic restart): each
+rank reads the same files and keeps its own shards, so placing a leaf
+needs no collective.
 """
 from __future__ import annotations
 
@@ -126,6 +127,30 @@ def restore(directory: str | os.PathLike, step: int, like: Any) -> tuple[Any, di
         return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
 
     return tree_map(load, like), meta["extra"]
+
+
+def restore_resharded(directory: str | os.PathLike, step: int, like: Any, shardings: Any) -> tuple[Any, dict]:
+    """Restore and place with the NEW mesh's shardings (elastic restart).
+    ``shardings`` is a tree over ``like``'s leaves: ``None`` keeps a leaf a
+    plain tensor on its ``like`` leaf's device; a ``sharding.rules.Sharding``
+    on a mesh over the process group (``MeshRules.tree_shardings`` of the
+    new mesh) makes it a DTensor, of which this rank holds its own shards."""
+    tree, extra = restore(directory, step, like)
+
+    def place(x: torch.Tensor, s: Any) -> Any:
+        if s is None:
+            return x
+        device_mesh = s.mesh.device_mesh
+        if device_mesh is None:
+            raise ValueError(f"sharding {s} is on a mesh without devices {s.mesh.shape}: "
+                             "restore onto a mesh over the process group")
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..sharding.rules import placements
+
+        return distribute_tensor(x, device_mesh, placements(s.mesh, s), src_data_rank=None)
+
+    return tree_map(place, tree, shardings), extra
 
 
 class AsyncCheckpointer:

@@ -171,24 +171,24 @@ class _Run:
         """Run one shape group to the end: its lane program (built by
         ``build``, or taken from :data:`~repro_torch.core.sweep_shard.PROGRAMS`
         with this group's ``lanes`` and ``shared`` inputs loaded into it) runs
-        rounds until no lane is active.  ``statics`` are the values other than
-        ``key`` that the step reads as Python numbers.  Returns the final state
-        (padded lanes included) and the group's record."""
-        prog, cached = sweep_shard.PROGRAMS.program(
-            (self.policy, key, statics), self.device, lanes, shared, build)
+        rounds until no lane is active, over this rank's share of the lanes
+        where a sweep mesh spans several ranks (``sweep_shard.run_sharded``).
+        ``statics`` are the values other than ``key`` that the step reads as
+        Python numbers.  Returns the final state (padded lanes included) and
+        the group's record."""
         record = {"policy": self.policy, "key": key, "statics": list(statics), "lanes": len(lanes["n_frames"]),
-                  "bucket": prog.buffers["n_frames"].shape[0], "cached": cached,
                   "rounds": 0, "host_reads": 0, "reruns": 0}
         self.groups.append(record)
-        return sweep_shard.run_sharded(prog, record), record
+        state = sweep_shard.run_sharded((self.policy, key, statics), self.device, lanes, shared, build, record)
+        return state, record
 
     @staticmethod
     def read(record: dict, *parts: torch.Tensor) -> list[np.ndarray]:
         """The group's results for its real lanes in one copy to the host
-        (integers below 2^53 travel exactly as float64)."""
-        record["host_reads"] += 1
+        (integers below 2^53 travel exactly as float64), gathered from every
+        rank over a sweep mesh (``sweep_shard.gather``)."""
         host = torch.stack([p.to(torch.float64) for p in parts]).cpu().numpy()
-        return list(host[:, : record["lanes"]])
+        return list(sweep_shard.gather(record, host, axis=1))
 
 
 def _window_frames(stream: StreamSpec, params: Mapping[str, Any]) -> int:

@@ -83,6 +83,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import sweep_shard
 from .bucketing import quant_w
 from .jax_sched import _accuracy_dp64, _no_fma
 from .profiles import ModelProfile, StreamSpec
@@ -639,8 +640,7 @@ def _read(record: dict, st: _Fleet) -> dict[str, np.ndarray]:
                  sbusy=st.sbusy, ovf=st.ovf)
     B = st.k.shape[0]
     flat = [p.reshape(B, -1).to(torch.float64) for p in parts.values()]
-    host = torch.cat(flat, dim=1).cpu().numpy()[: record["lanes"]]
-    record["host_reads"] += 1
+    host = sweep_shard.gather(record, torch.cat(flat, dim=1).cpu().numpy())
     out, at = {}, 0
     for name, p in zip(parts, flat):
         out[name] = host[:, at: at + p.shape[1]]

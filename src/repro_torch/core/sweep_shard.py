@@ -26,22 +26,44 @@ reference's own inert padding (lanes never interact), and the padded
 lanes' results are sliced off.  A lane of zeros would not be inert: its
 ``n_frames = 0`` would meet ``gamma = 1 / fps`` of zero.
 
-Only the reference's single-device path is ported (:func:`run_sharded`);
-its multi-device path over a sweep mesh waits for the port's meshes.
+:func:`run_sharded` runs a group over the sweep mesh
+(``launch.mesh.make_sweep_mesh``, one ``scenario`` axis over every rank):
+
+* **one rank** (no process group, a group of one, or
+  ``REPRO_SWEEP_SHARD=0``): the group's program runs every lane, as before;
+* **W > 1 ranks**: the group's B lanes pad to a multiple of W by repeating
+  the last lane, the reference's inert padding; the lane axis resolves
+  through ``sharding.rules.sweep_rules`` to ``Shard(0)`` on ``scenario``, so
+  rank r takes the contiguous chunk r of B'/W lanes, as ``shard_map``
+  splits the axis, and runs its own program over them (its own bucket).
+  Per-lane work stays on the rank that owns the lane; each rank copies its
+  results to the host once (:func:`gather`), the ranks all-gather the host
+  arrays over a gloo group in rank order, and every rank slices them back
+  to B.  Every rank runs every group in the same order, so the gathers
+  pair up, and every rank ends with every lane's results.
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from types import SimpleNamespace
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..launch.mesh import make_sweep_mesh
+from ..sharding.rules import MeshRules, sweep_rules
 from .bucketing import quant_pow2
 from .compile_cache import note
 
-__all__ = ["LaneCache", "LaneProgram", "MAX_PROGRAMS", "PROGRAMS", "lane_bucket", "run_sharded"]
+__all__ = ["LaneCache", "LaneProgram", "MAX_PROGRAMS", "PROGRAMS", "gather", "lane_bucket", "run_sharded"]
+
+
+def _shard_enabled() -> bool:
+    return os.environ.get("REPRO_SWEEP_SHARD", "1") != "0"
+
 
 MAX_PROGRAMS = 128  # a sweep's distinct shape keys: 4-40 a policy at full width
 
@@ -204,14 +226,40 @@ class LaneCache:
 PROGRAMS = LaneCache()  # the process's programs, as jax keeps its executables
 
 
-def run_sharded(prog: LaneProgram, record: dict) -> tuple:
-    """Run ``prog``'s rounds on its one device until no lane is active, and
-    return the final state (padded lanes included).  The test after each
+def _rank_lanes(mesh, lanes: Mapping[str, Any], n: int) -> tuple[dict[str, np.ndarray], int]:
+    """This rank's share of the group's ``n`` lanes, padded to a multiple of
+    the mesh by repeating the last lane, and the share's length.  The lane
+    axis resolves through ``sweep_rules``, and DTensor splits the padded
+    lane indices by the resolved placement (``Shard(0)`` on ``scenario``:
+    rank r's contiguous chunk r), locally, with no collective."""
+    from torch.distributed.tensor import distribute_tensor
+
+    padded = -(-n // mesh.size) * mesh.size
+    rules = MeshRules(mesh, sweep_rules(mesh))
+    spec = rules.placements(rules.logical((padded,), ("scenario",)))
+    mine = distribute_tensor(torch.arange(padded), mesh.device_mesh, spec, src_data_rank=None).to_local().numpy()
+    return {k: _pad(_host(a), padded)[mine] for k, a in lanes.items()}, len(mine)
+
+
+def run_sharded(key: tuple, device: torch.device, lanes: Mapping[str, Any], shared: Mapping[str, Any],
+                build: Callable, record: dict) -> tuple:
+    """Run one shape group's rounds until no lane is active and return the
+    final state of this rank's lanes (padded lanes included).  The program
+    comes from :data:`PROGRAMS` (``key``, ``lanes``, ``shared`` and
+    ``build`` as :meth:`LaneCache.program` takes them); over a sweep mesh of
+    W > 1 ranks it holds only this rank's chunk of the lanes, and
+    ``record`` gains ``world`` and ``rank_lanes``.  The test after each
     round is that round's one read from the device; ``record`` counts the
     rounds and the reads.  A program with a drain step reads its lanes'
     "iterations left" flag in the same copy, and replays the drain while
     any lane has some: each replay, and its read of the flag, is counted
     in ``record["drain_replays"]``."""
+    mesh = make_sweep_mesh()
+    if mesh.size > 1 and _shard_enabled():
+        lanes, part = _rank_lanes(mesh, lanes, record["lanes"])
+        record.update(world=mesh.size, rank_lanes=part)
+    prog, record["cached"] = PROGRAMS.program(key, device, lanes, shared, build)
+    record["bucket"] = prog.buffers["n_frames"].shape[0]
     state = prog.start()
     n_frames = prog.buffers["n_frames"]
     if prog.drain_step is not None:
@@ -230,3 +278,21 @@ def run_sharded(prog: LaneProgram, record: dict) -> tuple:
             left = bool(state[-1].any())
         if not active:
             return state
+
+
+def gather(record: dict, host: np.ndarray, axis: int = 0) -> np.ndarray:
+    """The group's real lanes of ``host``, this rank's results with lanes on
+    ``axis``: on one rank its first ``record["lanes"]``; over W ranks each
+    rank's ``rank_lanes``, all-gathered in rank order over the sweep mesh's
+    gloo group, then cut to the group's lanes.  Counts one host read."""
+    record["host_reads"] += 1
+    cut = [slice(None)] * host.ndim
+    if "world" not in record:
+        cut[axis] = slice(record["lanes"])
+        return host[tuple(cut)]
+    cut[axis] = slice(record["rank_lanes"])
+    local = torch.from_numpy(np.ascontiguousarray(host[tuple(cut)]))
+    parts = [torch.empty_like(local) for _ in range(record["world"])]
+    dist.all_gather(parts, local, group=make_sweep_mesh().device_mesh.get_group())
+    cut[axis] = slice(record["lanes"])
+    return torch.cat(parts, dim=axis).numpy()[tuple(cut)]

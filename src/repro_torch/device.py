@@ -5,10 +5,18 @@ the card on a machine without one raises instead of quietly running on the
 CPU.  Tests pass ``device="cpu"`` explicitly.  ``"meta"`` sizes a step
 without running it (``launch/dryrun``): tensors have shapes and dtypes and
 no values, and nothing is allocated.
+
+Under a process group (one process a rank, as ``torchrun`` starts them),
+``"cuda"`` is this rank's card: ``cuda:{LOCAL_RANK % device_count}``, the
+card ``DeviceMesh`` gives the rank (``get_rank()`` where ``LOCAL_RANK`` is
+unset).  Ranks that outnumber the cards share them.
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: torch.device | str = "cuda") -> torch.device:
@@ -20,4 +28,6 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
         )
     if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}; want 'cuda', 'cpu' or 'meta'")
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())) % torch.cuda.device_count())
     return dev

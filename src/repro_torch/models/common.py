@@ -157,13 +157,37 @@ SERVE_POLICY = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, 
 
 
 # ---------------------------------------------------------------------------
-# Activation sharding hook.  The port runs on one card, so shard() is the
-# identity; models keep the call sites so they read like the reference.
+# Activation sharding helper — models call shard(x, "batch", "seq", "embed")
+# and the active MeshRules resolves it (``MeshRules.constrain``: a DTensor is
+# redistributed to the resolved placements).  Outside a rules context it is
+# the identity, so single-card runs never see a mesh.
 # ---------------------------------------------------------------------------
+
+_ACTIVE_RULES: list[Any] = []
+
+
+class activation_rules:
+    """Context manager installing a MeshRules for shard() calls."""
+
+    def __init__(self, rules: Any):
+        self.rules = rules
+
+    def __enter__(self):
+        _ACTIVE_RULES.append(self.rules)
+        return self.rules
+
+    def __exit__(self, *exc):
+        _ACTIVE_RULES.pop()
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    return x
+    if not _ACTIVE_RULES:
+        return x
+    return _ACTIVE_RULES[-1].constrain(x, axes)
+
+
+def current_rules():
+    return _ACTIVE_RULES[-1] if _ACTIVE_RULES else None
 
 
 # ---------------------------------------------------------------------------

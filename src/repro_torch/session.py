@@ -42,12 +42,14 @@ import dataclasses
 import itertools
 import json
 import logging
+import os
 import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Iterator, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .core import sim_batch, sim_multi_batch, sim_online_batch
 from .core.audit import AUDIT_TOL, apply_round, audit_round
@@ -891,6 +893,11 @@ class Session:
         whole grid through ``core/sim_online_batch``; every other policy
         runs ``run_online`` point by point.  Online sweeps are
         single-stream.
+
+        Under a process group of W ranks (``torchrun``, each rank calling
+        ``run_sweep`` on the same grid), every batched shape group spreads
+        its lanes over the ranks (``core/sweep_shard.run_sharded``) and
+        every rank returns the whole report, equal to one rank's.
         """
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; want one of {self.BACKENDS}")
@@ -1175,6 +1182,23 @@ def _fail(exc: Exception) -> int:
     return 2
 
 
+def _join_ranks(device: str) -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1), join the process group its
+    environment describes, and say whether this process did.  Device
+    collectives run on NCCL where each rank on a host has its own card, else
+    on gloo (NCCL refuses two ranks on one card); the sweep's host gathers
+    take a gloo group either way (``launch.mesh.host_group``)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return False
+    on_card = device.split(":")[0] == "cuda" and torch.cuda.is_available()
+    own_card = on_card and int(os.environ.get("LOCAL_WORLD_SIZE", world)) <= torch.cuda.device_count()
+    dist.init_process_group("nccl" if own_card else "gloo")
+    if on_card:
+        torch.cuda.set_device(resolve_device("cuda"))
+    return True
+
+
 def _sweep_main(argv: Sequence[str]) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.session sweep",
@@ -1206,6 +1230,21 @@ def _sweep_main(argv: Sequence[str]) -> int:
         return 0
     if not args.spec or not args.grid:
         ap.error("need a spec path and --grid (or --example-grid)")
+    joined = _join_ranks(args.device)
+    code = _sweep_run(args)
+    if joined:
+        # Every rank leaves together, and now: gloo's teardown during
+        # interpreter exit aborts a rank now and then ("terminate called
+        # without an active exception").
+        dist.barrier()
+        dist.destroy_process_group()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    return code
+
+
+def _sweep_run(args: argparse.Namespace) -> int:
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:  # no card, or an unknown device
@@ -1221,6 +1260,8 @@ def _sweep_main(argv: Sequence[str]) -> int:
             keep_points=not args.summary_only,
             compile_cache=args.compile_cache,
         )
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return 0  # every rank holds the whole report; rank 0 writes it
         payload = json.dumps(report.to_json(), indent=2)
         if args.out:
             with open(args.out, "w") as fh:

@@ -1,1 +1,1 @@
-from .rules import MeshRules, batch_axes, serve_rules, train_rules  # noqa: F401
+from .rules import MeshRules, Sharding, batch_axes, serve_rules, sweep_rules, train_rules  # noqa: F401

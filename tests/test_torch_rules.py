@@ -23,6 +23,7 @@ from test_torch_ref import REPO  # installs the jax 0.9 shims first
 import jax
 import pytest
 import torch
+from torch_ranks import run_ranks
 
 from repro import arch as JA
 from repro import configs as jconfigs
@@ -142,8 +143,16 @@ def test_tree_shardings_and_constrain():
     x = torch.ones(4, 8)
     one = M.make_host_mesh()
     assert MeshRules(one, train_rules(one)).constrain(x, ("batch", "embed")) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    with pytest.raises(ValueError, match="plain tensor"):
         rules.constrain(x, ("batch", "embed"))
+
+
+def test_constrain_redistributes_a_dtensor(tmp_path):
+    """On a real (2, 1) mesh of two gloo ranks: replicated -> ``Shard(0)``
+    on data -> replicated, values unchanged at every step."""
+    for steps in run_ranks(tmp_path, 2, "torch_ranks:constrain_roundtrip"):
+        assert [(p, shape, same) for p, shape, _, same in steps] == [
+            ("(Shard(dim=0), Replicate())", [8, 4], True), ("(Replicate(), Replicate())", [16, 4], True)]
 
 
 HOST_MESH_CODE = """
