@@ -57,7 +57,8 @@ Phases (each raises on failure, so any failure exits non-zero):
                   (batch 4, lower where the weights are large) against the
                   kernel's prefill of the same tokens; qwen3's int8 cache
                   against its bf16 cache; prefill ms and tokens/s, decode ms a
-                  step (median of passes after a warm one), flash launches,
+                  step (the upper median of LM_DECODE_REPEATS passes after a
+                  warm one), flash launches,
                   peak memory
  5d. diffusion_full  DiT-XL/2 and Flux-dev through launch/steps.build_cell,
                   every config whole (seed-0 bf16 weights drawn on the card,
@@ -162,10 +163,30 @@ Phases (each raises on failure, so any failure exits non-zero):
                   qwen3-0.6b's SMOKE train state, saved here, onto a (2, 2)
                   mesh under train_rules: every local shard the saved
                   array's slice; (d) MeshRules.constrain of a DTensor on the
-                  card, Shard(0) -> Replicate, exact; no kernel launch
+                  card, Shard(0) -> Replicate, exact; no kernel launch in
+                  (a)-(d); (e) the LMs' serving steps through
+                  build_cell(..., rules=MeshRules(mesh, serve_rules(mesh)))
+                  (MESH_MODELS: qwen3-0.6b whole on a (2, 2) mesh,
+                  qwen2-moe-a2.7b at 2 layers on (1, 4) with its experts
+                  split; batch 2, a 4096-token prefill, decode steps
+                  against 32768 filled slots whose length crosses a split
+                  of the slots), first on one rank here (attending by the
+                  plain attention on f32-upcast q, k, v), then on the
+                  ranks: the flash kernel once a layer on each rank's
+                  heads, the logits put together from the ranks within
+                  LM_FULL_RTOL of one rank's with the top-1 rule (the
+                  MoE's picks replayed), two controls beyond it (one
+                  rank's attention partial left out of the prefill's sum,
+                  one rank's cache slots left out of a decode's merge),
+                  the distance to one card's bf16-score decode logged as
+                  a reading; ms a prefill
+                  and a decode step on 4 ranks against one, collectives a
+                  step (host-staged), peak memory per rank
  14. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
-                  and in phases 7b-13), then the contract's last line
+                  and in phases 7b-12 and the mesh phase's (a)-(d); its
+                  (e)'s flash launches, here and on the ranks, counted),
+                  then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
 train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
@@ -259,7 +280,7 @@ LM_LONG = 32768  # prefill_32k's length
 LM_PREFILL = 4096
 LM_DECODE_LEN = 32768  # decode_32k's cache length
 LM_DECODE_STEPS = 16
-LM_DECODE_REPEATS = 3  # timed decode passes, after the checked one
+LM_DECODE_REPEATS = 2  # timed decode passes, after the checked one
 LM_CASES = (
     ("qwen3-0.6b", (LM_LONG, LM_PREFILL), 4, True),
     ("deepseek-moe-16b", (LM_PREFILL,), 4, False),
@@ -313,7 +334,7 @@ DIFF_RTOL = 0.03
 TRAIN_CASES = (
     ("resnet-50", "cls_224", None, 256, 1, 1e-3),
     ("dit-xl2", "train_256", None, 256, 1, 1e-4),
-    ("qwen3-0.6b", "train_4k", None, 8, 8, 1e-3),
+    ("qwen3-0.6b", "train_4k", None, 4, 4, 1e-3),
     ("deepseek-moe-16b", "train_4k", 2, 4, 4, 1e-3),
     ("flux-dev", "train_1024", (2, 2), 4, 4, 1e-4),
 )
@@ -527,14 +548,30 @@ FLEET_SAMPLE_EVERY = 50  # every 50th full-width point against the loop and the 
 # trace), (c) restore_resharded of MESH_CKPT's SMOKE train state onto a
 # (2, 2) mesh under train_rules and (d) a constrain round trip of a DTensor
 # on the card; the results must equal the earlier phases' one-rank results
-# (ONE_RANK) and the goldens.  The ranks must end within MESH_TIMEOUT.
+# (ONE_RANK) and the goldens.  Then (e) the LMs' serving steps under
+# serve_rules on the ranks (MESH_MODELS), held against the same steps run
+# by the parent on one rank just before.  The ranks must end within
+# MESH_TIMEOUT.
 MESH_RANKS = 4
-MESH_TIMEOUT = 120  # seconds for the ranks, start to end: the phase's budget
+MESH_TIMEOUT = 210  # seconds for the ranks, start to end: the phase's budget
+MESH_PARTS = ("sweeps", "models")  # (a)-(d) and (e); a rehearsal runs one
 MESH_ONLINE = "max_utility/lattice"
 MESH_FLEET = "max_accuracy/planner"
 MESH_LARGE = "max_utility"
 MESH_CKPT = ("qwen3-0.6b", "train_4k")
 ONE_RANK: dict = {}  # filled by the sweep, online and fleet phases
+# (e): (config, depth (None: whole), (data, model) mesh, decode steps checked,
+# the decode cache's length before them).  The cache holds LM_DECODE_LEN
+# slots at MESH_BATCH, every one filled (``fill_cache``), and the length
+# starts a few slots before the first split of its slots over ``model``, so
+# the new tokens' writes and the valid slots cross ranks.
+MESH_BATCH = 2
+MESH_MODELS = (("qwen3-0.6b", None, (2, 2), LM_DECODE_STEPS, LM_DECODE_LEN // 2 - LM_DECODE_STEPS // 2),
+               ("qwen2-moe-a2.7b", 2, (1, 4), 4, LM_DECODE_LEN // 4 - 2))
+MESH_TIMED = 4  # decode steps timed after the checked ones (a prefill: one, after the checked one)
+MESH_CONTROL_STEPS = 2  # LM_CONTROL's decode steps that leave the slots of a rank out of the merge
+MESH_SMOKE = False  # the SMOKE configs (a rehearsal on the CPU)
+MESH_REPORT: dict = {}  # (e)'s one-rank results and the ranks' outputs, kept for a rehearsal's checks
 
 
 def log(msg: str) -> None:
@@ -1528,9 +1565,9 @@ def phase_lm_full(torch, A, configs, common, steps, lm, L, flash_ops, flash_ref,
         def decode(cell, picks, measure=True):
             """LM_DECODE_STEPS steps from the cell's empty cache, the MoE picks
             recorded into ``picks``; then, with ``measure``, the same pass
-            timed: (its last logits, ms a step as the median of
-            LM_DECODE_REPEATS passes after that first one, the device profile
-            of one more step)."""
+            timed: (its last logits, ms a step as the upper median of
+            LM_DECODE_REPEATS passes after that first one (of 2: the larger),
+            the device profile of one more step)."""
             empty = cell.init_arg(1, SEED, DEVICE)
 
             def run():  # every pass starts at length 0 and rewrites the same slots
@@ -2990,6 +3027,196 @@ def phase_cache(torch, core, session, smi: str) -> None:
         f"({held_allocated:.1f} MiB allocated: buffers and round state) in {len(shard.PROGRAMS)} programs ({smi})")
 
 
+def mesh_arch(A, configs, name: str, depth):
+    """(e)'s config of ``name`` (depth cut where ``depth`` is not None):
+    a prefill of LM_PREFILL tokens and a decode against LM_DECODE_LEN
+    slots, both at MESH_BATCH."""
+    arch = configs.get(name, smoke=MESH_SMOKE)
+    cfg = arch.cfg if depth is None else dataclasses.replace(arch.cfg, n_layers=depth)
+    shapes = (A.ShapeSpec("prefill", "prefill", MESH_BATCH, LM_PREFILL),
+              A.ShapeSpec("decode", "decode", MESH_BATCH, LM_DECODE_LEN))
+    return dataclasses.replace(arch, cfg=cfg, shapes=shapes)
+
+
+def fill_cache(torch, cache: dict, length: int) -> None:
+    """Every slot of a decode cache's k and v (this rank's slices of them,
+    or the whole) set to a value in [-2, 2) hashed from its global position
+    (two rounds of the MINSTD generator), so one rank and many hold the same
+    global cache; its length set to ``length``."""
+    from repro_torch.models.common import local, local_slice
+
+    m = 2147483647
+    for n, name in enumerate(("k", "v")):
+        t = cache[name]
+        dims = range(1, t.dim())
+        stride = [math.prod(t.shape[d + 1:]) for d in range(t.dim())]
+        part = [local_slice(t, d)[0] for d in range(t.dim())]
+        buf = local(t)
+        for i, layer in enumerate(range(part[0].start, part[0].stop)):  # a layer at a time: int64 indices
+            idx = torch.tensor((n * t.shape[0] + layer) * stride[0], dtype=torch.int64, device=buf.device)
+            for d in dims:
+                view = [-1 if e == d else 1 for e in dims]
+                idx = idx + (torch.arange(part[d].start, part[d].stop, device=buf.device) * stride[d]).view(view)
+            x = (idx * 0x2545F491 + 1) % m * 48271 % m
+            buf[i] = (x.double() * (4.0 / m) - 2.0).to(buf.dtype)
+    local(cache["len"]).fill_(length)
+
+
+def laid(t) -> tuple:
+    """A (DTensor's local) tensor on the host in f32, with the [start,
+    stop) of each dim it holds of the global tensor."""
+    from repro_torch.models.common import local, local_slice
+
+    return local(t).float().cpu(), [[s.start, s.stop] for s in (local_slice(t, d)[0] for d in range(t.dim()))]
+
+
+def assemble(torch, parts: list):
+    """The global tensor from the ``laid`` parts of every rank; every
+    element must be covered."""
+    shape = [max(w[d][1] for _, w in parts) for d in range(len(parts[0][1]))]
+    full, covered = torch.zeros(shape), torch.zeros(shape, dtype=torch.bool)
+    for local, where in parts:
+        at = tuple(slice(a, b) for a, b in where)
+        full[at], covered[at] = local, True
+    check(bool(covered.all()), f"mesh (e): the ranks' shards do not cover a {shape} output")
+    return full
+
+
+@contextlib.contextmanager
+def leave_out_partial(L, torch, where: str, coord: int):
+    """While active, the sums and maxima over ranks inside ``layers.<where>``
+    leave out the partials of the rank at coordinate ``coord`` of their
+    axes' last mesh axis (zeros to a sum, -1e30 to a max).  A wrong path:
+    in ``attention``, one rank's heads missing from every attention output;
+    in ``_sdpa_split``, one rank's (m, l, acc) missing from the merge of a
+    decode's cache slots."""
+    real = getattr(L, where)
+
+    def dropping(collective, fill):
+        def dropped(x, mesh, axes):
+            if axes and mesh.get_coordinate()[mesh.mesh_dim_names.index(axes[-1])] == coord:
+                x = torch.full_like(x, fill)
+            return collective(x, mesh, axes)
+
+        return dropped
+
+    def wrong(*args, **kw):
+        with mock.patch.object(L, "all_sum", dropping(L.all_sum, 0.0)), \
+                mock.patch.object(L, "all_max", dropping(L.all_max, L.NEG_INF)):
+            return real(*args, **kw)
+
+    with mock.patch.object(L, where, wrong):
+        yield
+
+
+def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
+    """(e) for one MESH_MODELS ``case`` in this process: on one rank
+    (``rules`` None, the parent) or on the ranks of ``rules``' mesh.  The
+    prefill and decode cells of ``mesh_arch`` through ``build_cell(...,
+    rules=rules)``, seed-SEED weights (attention matrices at their own
+    fan-in, as lm_full), the prompt from the seed; the checked prefill, then
+    the checked decode steps against the filled cache.  One rank is the
+    reference: its prefill and decode attend by the plain attention on
+    f32-upcast q, k, v (as lm_full's reference; the ranks' decode merges
+    its slots in f32 too), and its decode runs again as the port runs it on
+    one card (bf16 scores), a reading.  The MoE picks recorded by the
+    one-rank prefill and decode (``workdir``) are replayed on the ranks and
+    in the reading.  Then a prefill and MESH_TIMED decode steps timed (flash
+    launches of that prefill counted on one rank); on the ranks, for
+    LM_CONTROL, a prefill that leaves a rank's partial out of the
+    attention's sum and MESH_CONTROL_STEPS decode steps that leave the
+    slots of coordinate 0 (which hold the valid ones) out of the merge.
+    Returns the outputs (``laid``), flash launches of a prefill and in all,
+    collectives a prefill and a decode step (``rules.COLLECTIVES``), ms and
+    peak GB."""
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import local_slice
+    from repro_torch.sharding import rules as R
+
+    name, depth, _, n_steps, length = case
+    arch = mesh_arch(A, configs, name, depth)
+    pre, dec = (steps.build_cell(arch, s.name, rules=rules) for s in arch.shapes)
+
+    def place(tree, specs):
+        return tree if rules is None else interop.place(tree, specs, rules, device=DEVICE)
+
+    params = own_fan_in(pre.init_arg(0, SEED, DEVICE), arch.cfg)
+    prompt = A.make_inputs(arch, arch.shapes[0], SEED, device=DEVICE)
+    batch = place(prompt, pre.arg_specs[1])
+    cache = dec.init_arg(1, SEED, DEVICE)
+    tokens = [place({"token": prompt["tokens"][:, s:s + 1]}, dec.arg_specs[2]) for s in range(n_steps + MESH_TIMED)]
+    picks_file = workdir / f"picks_{name}.pt"
+    rows = local_slice(batch["tokens"], 0)[0]
+    picks = [] if rules is None else [p[rows].to(DEVICE) for p in torch.load(picks_file)]
+    count = lambda: sum(R.COLLECTIVES.values())  # noqa: E731
+    real_sdpa = L._sdpa
+
+    def upcast_sdpa(c, q, k, v, mask=None):
+        return real_sdpa(c, q.float(), k.float(), v.float(), mask).to(q.dtype)
+
+    def plain_attention(q, k, v, *, causal=True, **_):
+        return upcast_attention(torch, flash_ref, q, k, v, causal=causal)
+
+    def decode_pass(sdpa, n=n_steps):
+        """``n`` checked decode steps from the filled cache, ``layers._sdpa``
+        (one rank's decode attention) as ``sdpa``."""
+        nonlocal cache
+        fill_cache(torch, cache, length)
+        outs = []
+        with mock.patch.object(L, "_sdpa", sdpa):
+            for s in range(n):
+                out, cache = dec(params, cache, tokens[s])
+                outs.append(laid(out))
+        return outs
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = flash_ops.flash_attention.launches
+    with expert_picks(L, picks, replay=rules is not None):
+        c0 = count()
+        if rules is None:  # the reference: the plain attention on f32-upcast q, k, v
+            with mock.patch.object(flash_ops, "attention", plain_attention):
+                logits, _ = pre(params, batch)
+        else:
+            logits, _ = pre(params, batch)
+        launches, c_pre = flash_ops.flash_attention.launches - launches0, count() - c0
+        n_pre = len(picks)
+        outs = decode_pass(real_sdpa if rules is not None else upcast_sdpa)
+    out = {"prefill": laid(logits), "decode": outs}
+    if rules is None:
+        torch.save([p.cpu() for p in picks], picks_file)
+        with expert_picks(L, picks[n_pre:], replay=True):
+            out["decode_bf16"] = decode_pass(real_sdpa)  # one card's bf16 scores: a reading beside
+    launches1 = flash_ops.flash_attention.launches
+    _, s_pre = timed(torch, lambda: pre(params, batch))
+    if rules is None:
+        launches = flash_ops.flash_attention.launches - launches1
+    c0 = count()
+
+    def timed_steps():
+        nonlocal cache
+        for s in range(n_steps, n_steps + MESH_TIMED):
+            cache = dec(params, cache, tokens[s])[1]
+
+    _, s_dec = timed(torch, timed_steps)
+    out.update(launches=launches, collectives={"prefill": c_pre, "decode": (count() - c0) / MESH_TIMED},
+               ms={"prefill": s_pre * 1e3, "decode": s_dec * 1e3 / MESH_TIMED}, layers=arch.cfg.n_layers)
+    if rules is not None and name == LM_CONTROL:
+        with leave_out_partial(L, torch, "attention", 1):
+            out["control"] = laid(pre(params, batch)[0])
+        with leave_out_partial(L, torch, "_sdpa_split", 0):
+            out["decode_control"] = decode_pass(real_sdpa, MESH_CONTROL_STEPS)
+    out["all_launches"] = flash_ops.flash_attention.launches - launches0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0
+    return out
+
+
 def mesh_rank(rank: int, world: int, workdir: str, settings: dict) -> None:
     """One rank of the mesh phase, in a spawned process: takes the parent's
     ``settings`` (this module's constants, which a rehearsal on the CPU
@@ -3018,7 +3245,33 @@ def mesh_rank(rank: int, world: int, workdir: str, settings: dict) -> None:
 
 
 def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
-    """(a)-(d) of the mesh phase on this rank; what the parent compares."""
+    """The mesh phase's MESH_PARTS on this rank; what the parent compares.
+    (e)'s outputs go to ``rank{rank}_models.pt`` in ``workdir``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.npu_matmul import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import MeshRules, serve_rules
+
+    out = {"rank": rank, "device": torch.cuda.current_device() if DEVICE == "cuda" else None}
+    if "sweeps" in MESH_PARTS:
+        out.update(sweep_checks(torch, rank, world, workdir))
+    if "models" in MESH_PARTS:
+        ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+        out["models"], tensors = {}, {}
+        for case in MESH_MODELS:
+            mesh = make_host_mesh(*case[2], device=DEVICE)
+            t = time.perf_counter()
+            r = model_steps(torch, case, workdir, MeshRules(mesh, serve_rules(mesh)))
+            tensors[case[0]] = {k: r.pop(k) for k in ("prefill", "decode", "control", "decode_control") if k in r}
+            out["models"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
+                                      "seconds": time.perf_counter() - t}
+        out["models_launches"] = [ops.int8_matmul.launches, flash_ops.flash_attention.launches]
+        torch.save(tensors, workdir / f"rank{rank}_models.pt")
+    return out
+
+
+def sweep_checks(torch, rank: int, world: int, workdir: Path) -> dict:
+    """(a)-(d) of the mesh phase on this rank."""
     import numpy as np
     from torch.distributed.tensor import Replicate, distribute_tensor
 
@@ -3042,8 +3295,7 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
         return report
 
     t = time.perf_counter()
-    out = {"rank": rank, "device": torch.cuda.current_device() if DEVICE == "cuda" else None,
-           "sweep": {name: sweep_rows(run(spec, grid)) for name, (spec, grid) in sweep_cases().items()},
+    out = {"sweep": {name: sweep_rows(run(spec, grid)) for name, (spec, grid) in sweep_cases().items()},
            "online": online_rows(run(*online_cases(scenariogen)[MESH_ONLINE], mode="online")),
            "fleet": fleet_rows(run(*fleet_cases()[MESH_FLEET]))}
     seconds["goldens"] = time.perf_counter() - t
@@ -3094,12 +3346,16 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
 def check_ranks(torch, core, ranks: list) -> None:
     """The parent's verdict on the mesh phase's rank results (``ranks``, one
     :func:`mesh_checks` dict a rank) against the goldens and ONE_RANK."""
+    for r in ranks:
+        check(DEVICE != "cuda" or r["device"] == r["rank"] % torch.cuda.device_count(),
+              f"mesh: rank {r['rank']} ran on cuda:{r['device']}")
+    check(sorted(r["rank"] for r in ranks) == list(range(MESH_RANKS)), "mesh: a rank's result is missing")
+    if "sweeps" not in MESH_PARTS:
+        return
     tol, multi_tol = core.audit.AUDIT_TOL, core.sim_multi_batch.MULTI_TOL
     large_rows = ONE_RANK["large"][0]
     for r in ranks:
         rank = r["rank"]
-        check(DEVICE != "cuda" or r["device"] == rank % torch.cuda.device_count(),
-              f"mesh: rank {rank} ran on cuda:{r['device']}")
         bad = sorted(n for n in SWEEP_GOLDENS if not sweep_agree(n, r["sweep"].get(n, []), SWEEP_GOLDENS[n], tol))
         check(not bad, f"mesh: rank {rank}'s sweep results differ from the reference's at {bad}")
         check(r["sweep"] == ONE_RANK["sweep"], f"mesh: rank {rank}'s sweep goldens differ from one rank's")
@@ -3122,9 +3378,57 @@ def check_ranks(torch, core, ranks: list) -> None:
         check(c["placements"] == ["(Shard(dim=0), Replicate())", "(Replicate(), Replicate())"]
               and c["split"] and c["whole"], f"mesh: rank {rank}'s constrain round trip: {c}")
         check(r["launches"] == [0, 0], f"mesh: rank {rank} launched a model kernel: {r['launches']}")
-    check(sorted(r["rank"] for r in ranks) == list(range(MESH_RANKS)), "mesh: a rank's result is missing")
     check(sorted(tuple(r["restore"]["coord"]) for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)],
           "mesh: the restore's coordinates do not cover the (2, 2) mesh")
+
+
+def check_models(torch, ranks: list, one: dict, tensors: list) -> dict:
+    """(e)'s verdict: per MESH_MODELS case, every rank launched the flash
+    kernel once a layer in the checked prefill (on the card) and the int8
+    kernel never; the ranks' coordinates cover the mesh; the prefill's and
+    every decode step's logits, put together from the ranks' shards, lie
+    within LM_FULL_RTOL of the one-rank run's (``one``; its attention the
+    plain one on f32-upcast q, k, v) with the top-1 rule
+    (a decode pick may also tie within twice the prefill's distance, a
+    sound distance measured apart from the decode); for LM_CONTROL the
+    prefill that leaves a rank's partial out of the attention's sum, and
+    every decode step that leaves a rank's slots out of the merge, lie
+    beyond it.  ``tensors``: each rank's ``rank{r}_models.pt``.  Returns
+    the report per case."""
+    report = {}
+    for name, _, (data, model), n_steps, _ in MESH_MODELS:
+        ref, rows = one[name], [r["models"][name] for r in ranks]
+        want = ref["layers"] if DEVICE == "cuda" else 0  # CPU calls take the plain version: no launch
+        check(all(m["launches"] == want for m in rows),
+              f"mesh (e): {name}: flash launches a prefill per rank {[m['launches'] for m in rows]}, want {want}")
+        check(all(r["models_launches"][0] == 0 for r in ranks), f"mesh (e): {name}: a rank launched the int8 kernel")
+        check(sorted(tuple(m["coord"]) for m in rows) == [(i, j) for i in range(data) for j in range(model)],
+              f"mesh (e): {name}: the ranks do not cover the ({data}, {model}) mesh")
+        pre = compare_logits(assemble(torch, [t[name]["prefill"] for t in tensors]), ref["prefill"][0])
+        dec = [compare_logits(assemble(torch, [t[name]["decode"][s] for t in tensors]), ref["decode"][s][0],
+                              noise=pre["err"]) for s in range(n_steps)]
+        worst = max(dec, key=lambda c: c["rel"])
+        bf16 = [distance(assemble(torch, [t[name]["decode"][s] for t in tensors]), ref["decode_bf16"][s][0])["rel"]
+                for s in range(n_steps)]
+        report[name] = {"prefill": pre, "decode": worst, "decode_bf16": max(bf16), "one": ref, "ranks": rows}
+        log(f"mesh (e): {name} on the ranks against one rank: prefill {agreement(pre)}; decode steps "
+            f"{[round(c['rel'], 5) for c in dec]} of max|logit| {[round(c['scale'], 3) for c in dec]}; against "
+            f"one card's decode on bf16 scores (a reading) {[round(r, 5) for r in bf16]}")
+        check(pre["rel"] <= LM_FULL_RTOL and pre["top1_ok"],
+              f"mesh (e): {name}'s prefill on the ranks differs from one rank's: {agreement(pre)}")
+        check(all(c["rel"] <= LM_FULL_RTOL and c["top1_ok"] for c in dec),
+              f"mesh (e): {name}'s decode on the ranks differs from one rank's: {agreement(worst)}")
+        if name == LM_CONTROL:
+            control = distance(assemble(torch, [t[name]["control"] for t in tensors]), ref["prefill"][0])["rel"]
+            report[name]["control"] = control
+            check(control > LM_FULL_RTOL, f"mesh (e): {name}'s prefill without a rank's attention partial lies "
+                  f"within the limit ({control:.4%}): the check cannot fail")
+            dec_control = [distance(assemble(torch, [t[name]["decode_control"][s] for t in tensors]),
+                                    ref["decode"][s][0])["rel"] for s in range(MESH_CONTROL_STEPS)]
+            report[name]["decode_control"] = min(dec_control)
+            check(min(dec_control) > LM_FULL_RTOL, f"mesh (e): {name}'s decode without a rank's slots in the merge "
+                  f"lies within the limit ({min(dec_control):.4%}): the check cannot fail")
+    return report
 
 
 def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> list:
@@ -3140,7 +3444,7 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
     from repro_torch import checkpoint as ck
 
     t_phase = time.perf_counter()
-    if len(ONE_RANK) < 4:  # the phase run alone: the one-rank results here
+    if "sweeps" in MESH_PARTS and len(ONE_RANK) < 4:  # the phase run alone: the one-rank results here
         batched = lambda spec, grid, mode="auto": session.Session(  # noqa: E731
             session.ScenarioSpec.from_json(spec), device=DEVICE).run_sweep(
             session.SweepGrid.from_json(grid), backend="batched", mode=mode)
@@ -3153,8 +3457,14 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
     with tempfile.TemporaryDirectory() as workdir:
         cell = steps.build_cell(configs.get(name, smoke=True), shape)
         ck.save(Path(workdir) / "ckpt", 1, cell.init_arg(0, SEED, "cpu"))
+        one, one_s = {}, time.perf_counter()
+        if "models" in MESH_PARTS:  # (e) on one rank first: the reference, and the MoE picks to replay
+            one = {case[0]: model_steps(torch, case, Path(workdir)) for case in MESH_MODELS}
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+        one_s = time.perf_counter() - one_s
         ctx = multiprocessing.get_context("spawn")
-        settings = {k: v for k, v in globals().items() if k.isupper() and k != "ONE_RANK"}
+        settings = {k: v for k, v in globals().items() if k.isupper() and k not in ("ONE_RANK", "MESH_REPORT")}
         procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, workdir, settings)) for r in range(MESH_RANKS)]
         t_ranks = time.perf_counter()
         try:
@@ -3173,21 +3483,46 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
         codes = [p.exitcode for p in procs]
         check(codes == [0] * MESH_RANKS, f"mesh: the ranks exited {codes}")
         ranks = [json.loads((Path(workdir) / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+        check_ranks(torch, core, ranks)
+        models = {}
+        if "models" in MESH_PARTS:
+            tensors = [torch.load(Path(workdir) / f"rank{r}_models.pt") for r in range(MESH_RANKS)]
+            MESH_REPORT.update(one=one, tensors=tensors, ranks=ranks)
+            models = check_models(torch, ranks, one, tensors)
 
-    check_ranks(torch, core, ranks)
-    large_rows, s1 = ONE_RANK["large"]
-    n = len(large_rows)
-    s4 = max(r["seconds"]["large"] for r in ranks)
-    lane_counts = sorted({g["lanes"] for g in ranks[0]["groups"]})
-    log(f"mesh: {MESH_RANKS} ranks sharing the card ({smi}): every rank holds the sweep goldens "
-        f"({sum(map(len, ONE_RANK['sweep'].values()))} points), {MESH_ONLINE} online and {MESH_FLEET} fleet, equal "
-        f"to one rank's field for field; groups of {lane_counts} lanes; {MESH_LARGE} {n} points x {SWEEP_FRAMES} "
-        f"frames under SWEEP_TRACE: {1e3 * s4 / n:.3f} ms/point on {MESH_RANKS} ranks (first call, slowest rank) "
-        f"against {1e3 * s1 / n:.3f} on one (the sweep phase's first call), stats equal; restore_resharded of {name} SMOKE "
-        f"({ranks[0]['restore']['leaves']} leaves, {ranks[0]['restore']['sharded']} sharded on each rank) onto (2, 2) "
-        f"equal to the saved slices; constrain Shard(0) -> Replicate on the card exact; no kernel launch; ranks "
-        f"{s_ranks:.1f} s (" + ", ".join(f"{k} {max(r['seconds'][k] for r in ranks):.1f}"
-                                   for k in ranks[0]["seconds"]) + f" s, slowest rank); phase wall "
+    if "sweeps" in MESH_PARTS:
+        large_rows, s1 = ONE_RANK["large"]
+        n = len(large_rows)
+        s4 = max(r["seconds"]["large"] for r in ranks)
+        lane_counts = sorted({g["lanes"] for g in ranks[0]["groups"]})
+        log(f"mesh: {MESH_RANKS} ranks sharing the card ({smi}): every rank holds the sweep goldens "
+            f"({sum(map(len, ONE_RANK['sweep'].values()))} points), {MESH_ONLINE} online and {MESH_FLEET} fleet, "
+            f"equal to one rank's field for field; groups of {lane_counts} lanes; {MESH_LARGE} {n} points x "
+            f"{SWEEP_FRAMES} frames under SWEEP_TRACE: {1e3 * s4 / n:.3f} ms/point on {MESH_RANKS} ranks (first call, "
+            f"slowest rank) against {1e3 * s1 / n:.3f} on one (the sweep phase's first call), stats equal; "
+            f"restore_resharded of {name} SMOKE ({ranks[0]['restore']['leaves']} leaves, "
+            f"{ranks[0]['restore']['sharded']} sharded on each rank) onto (2, 2) equal to the saved slices; constrain "
+            f"Shard(0) -> Replicate on the card exact; no kernel launch in (a)-(d); " + ", ".join(
+                f"{k} {max(r['seconds'][k] for r in ranks):.1f}" for k in ranks[0]["seconds"]) + " s (slowest rank)")
+    for (name, _, (data, model), n_steps, length), m in zip(MESH_MODELS, models.values()):
+        one_m, rows = m["one"], m["ranks"]
+        log(f"mesh (e): {name} ({one_m['layers']} layers) on a ({data}, {model}) mesh of {MESH_RANKS} ranks sharing "
+            f"the card ({smi}), batch {MESH_BATCH}: prefill of {LM_PREFILL} tokens against one rank's: "
+            f"{agreement(m['prefill'])}; {n_steps} decode steps against a {LM_DECODE_LEN}-slot cache from length "
+            f"{length}, the worst: {agreement(m['decode'])} (limit {LM_FULL_RTOL:.2%})"
+            + f" (against one card's decode on bf16 scores, a reading: {m['decode_bf16']:.4%})"
+            + (f"; control (a rank's attention partial left out) {m['control']:.4%}, decode control (a rank's "
+               f"slots left out of the merge, the nearest of {MESH_CONTROL_STEPS} steps) {m['decode_control']:.4%}"
+               if "control" in m else "")
+            + f"; ms a prefill {max(r['ms']['prefill'] for r in rows):.2f} on {MESH_RANKS} ranks (slowest) against "
+            f"{one_m['ms']['prefill']:.2f} on one, a decode step {max(r['ms']['decode'] for r in rows):.2f} against "
+            f"{one_m['ms']['decode']:.2f} (the mean of {MESH_TIMED}); flash launches a prefill per rank "
+            f"{[r['launches'] for r in rows]} (one rank's timed prefill {one_m['launches']}), in (e) per rank "
+            f"{[r['all_launches'] for r in rows]}; collectives a prefill {rows[0]['collectives']['prefill']}, a decode "
+            f"step {rows[0]['collectives']['decode']:g} (through sharding.rules, host-staged on the card); peak GB "
+            f"per rank {[round(r['peak_gb'], 2) for r in rows]} (one rank {one_m['peak_gb']:.2f}); "
+            f"{max(r['seconds'] for r in rows):.1f} s on the ranks")
+    log(f"mesh: one-rank (e) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return ranks
 
@@ -4090,23 +4425,34 @@ def main() -> int:
                      ("sweep", lambda: phase_sweep(torch, core, session, smi)),
                      ("online", lambda: phase_online(torch, core, session, scenariogen, smi)),
                      ("fleet", lambda: phase_fleet(torch, core, session, smi)),
-                     ("cache", lambda: phase_cache(torch, core, session, smi)),
-                     ("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))):
+                     ("cache", lambda: phase_cache(torch, core, session, smi))):
         torch.cuda.empty_cache()
         ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
         phase(name, fn)
         launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
         log(f"{name}: kernel launches (int8_matmul, flash_attention) {launches}")
         check(launches == (0, 0), f"the {name} phase launched a model kernel")
+    # The mesh phase's (e) runs LM steps: flash launches in this process (the
+    # one-rank runs) and in each rank (check_models holds them a layer each).
+    torch.cuda.empty_cache()
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+    mesh_ranks = phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
+    mesh_one = flash_ops.flash_attention.launches
+    mesh_rank_flash = [r["models_launches"][1] for r in mesh_ranks]
+    log(f"mesh: kernel launches (int8_matmul, flash_attention) ({ops.int8_matmul.launches}, {mesh_one}) here (the "
+        f"one-rank (e)), flash {mesh_rank_flash} on the ranks in (e), 0 in (a)-(d)")
+    check(ops.int8_matmul.launches == 0, "the mesh phase launched the int8 kernel")
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + zoo_int8 + serving_int8
-    flash_launches = vit_flash + zoo_flash + lm_flash + diff_flash + serving_flash
+    mesh_flash = mesh_one + sum(mesh_rank_flash)
+    flash_launches = vit_flash + zoo_flash + lm_flash + diff_flash + serving_flash + mesh_flash
     log(f"kernels: [int8_matmul: {int8_launches} launches on the main path (serve_full {full_launches}, "
         f"vit_full {vit_int8}, zoo_full {zoo_int8}, lm_full 0, diffusion_full 0, train_full {train_launches[0]}, "
-        f"serving {serving_int8}); flash_attention: {flash_launches} launches on the main path (vit_full {vit_flash}, "
-        f"zoo_full {zoo_flash}, lm_full {lm_flash}, diffusion_full {diff_flash}, train_full {train_launches[1]}, "
-        f"serving {serving_flash})]")
+        f"serving {serving_int8}, mesh 0); flash_attention: {flash_launches} launches on the main path (vit_full "
+        f"{vit_flash}, zoo_full {zoo_flash}, lm_full {lm_flash}, diffusion_full {diff_flash}, train_full "
+        f"{train_launches[1]}, serving {serving_flash}, mesh {mesh_flash} = {mesh_one} on one rank + "
+        f"{' + '.join(map(str, mesh_rank_flash))} on the ranks)]")
     for name, r in lm_report.items():
         log(f"lm_full summary {name} ({r['layers']} layers): prefill " + ", ".join(
             f"S {S}: {p['ms']:.2f} ms, {p['tokens_per_s']:.0f} tokens/s, {p['launches']} flash launches"
@@ -4183,6 +4529,7 @@ def main() -> int:
         "bound_by": vit1["bound_by"],
         "library_ms": n_layers * vit1["library_ms"],
         "train_full_launches": train_launches[1],
+        "mesh_launches": {"one_rank": mesh_one, "ranks": mesh_rank_flash},
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

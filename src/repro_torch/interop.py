@@ -10,6 +10,10 @@ leaves such as the MoE experts' ``[L, E, d, f]``, its ``embed``); BatchNorm
 state carried over.  Structure and shapes are checked against ``arch``'s own
 specs (for an LM, ``lm.abstract_params``).  This module imports nothing of the
 reference; it only reads arrays.
+
+:func:`place` lays such a tree out on the mesh of a ``MeshRules`` over
+ranks: each rank keeps its slice of every leaf as a DTensor, as
+``launch/steps``' ``init_args`` lays out drawn weights.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from .arch import Arch, abstract_params
 from .device import resolve_device
+from .models.common import tree_map
 
 
 def _convert(name: str, a: np.ndarray, spec, device: torch.device) -> torch.Tensor:
@@ -45,3 +50,12 @@ def from_jax(arch: Arch, params: Any, state: Any, *, device: torch.device | str 
     device = resolve_device(device)
     specs, state_specs = abstract_params(arch)
     return _walk("", params, specs, device), _walk("", state, state_specs, device)
+
+
+def place(tree: Any, specs: Any, rules, *, device: torch.device | str = "cuda") -> Any:
+    """A tree of arrays (numpy or tensors, of ``specs``' structure and
+    shapes, each keeping its own dtype) on ``device``, every leaf laid out on
+    the mesh of ``rules`` as its spec resolves (``MeshRules.place``): a
+    DTensor of this rank's slice."""
+    device = resolve_device(device)
+    return tree_map(lambda s, a: rules.place(torch.as_tensor(a, device=device), s), specs, tree)

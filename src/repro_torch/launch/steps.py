@@ -27,7 +27,15 @@ kind's ``loss_fn(params, state, batch) -> (loss, (metrics, new_state))``;
 
 A ``denoise_step`` cell runs one sampler step of DiT (DDIM, cosine
 schedule) or Flux (rectified-flow Euler) on ``{"x", "t", "dt", ...}``.
-Mesh rules wait for the multi-device path (ROADMAP item 8) and raise.
+
+With ``rules`` (a ``MeshRules`` over a mesh of ``torch.distributed`` ranks)
+the LM's ``prefill`` and ``decode`` run on every rank under
+``activation_rules``, as the reference's ``_with_rules``:
+``prog.shardings()`` gives each argument leaf's spec, ``prog.init_args``
+each rank's slices as DTensors (a leaf drawn whole, its slice kept), and
+the step returns DTensors (logits on ``vocab``, the cache on its
+``kv_seq_axis``).  Every other kind under rules raises, naming its
+ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ import torch.nn.functional as F
 from .. import arch as A
 from ..device import resolve_device
 from ..models import diffusion, lm
-from ..models.common import ParamSpec, abstract_tree, init_tree, spec, tree_leaves, tree_map
+from ..models.common import (ParamSpec, abstract_tree, activation_rules, init_param, init_tree, spec, tree_leaves,
+                             tree_map)
+from ..sharding.rules import MeshRules
 from ..train import optim
 
 
@@ -52,17 +62,37 @@ class CellProgram:
     arg_specs: tuple  # ParamSpec trees
     donate: tuple[int, ...] = ()
     meta: dict = dataclasses.field(default_factory=dict)
+    rules: MeshRules | None = None
+
+    def shardings(self):
+        """Each argument leaf's resolved spec (the reference's
+        ``in_shardings``); None without rules."""
+        if self.rules is None:
+            return None
+        return tuple(self.rules.tree_shardings(s) for s in self.arg_specs)
 
     def init_arg(self, i: int, seed: int = 0, device: torch.device | str = "cuda"):
         """Argument ``i``, drawn on ``device`` from seed ``seed + 7919 * i``
         (the reference folds ``i`` into its key), so each argument can be made
         alone and equals its entry in ``init_args``.  On ``meta``: shapes, no
-        values."""
+        values.  Under the cell's ``rules`` each rank draws a leaf
+        whole, keeps its slice as a DTensor and frees the rest before the
+        next leaf (empty and ones leaves are made as slices): the values are
+        the unsharded ones."""
         device = resolve_device(device)
+        specs, rules = self.arg_specs[i], self.rules
         if device.type == "meta":
-            return abstract_tree(self.arg_specs[i])
+            return abstract_tree(specs)
         gen = torch.Generator(device=device).manual_seed(seed + 7919 * i)
-        return init_tree(gen, self.arg_specs[i], device=device)
+        if rules is None or rules.mesh.device_mesh is None:
+            return init_tree(gen, specs, device=device)
+
+        def leaf(s: ParamSpec):
+            if s.init in ("zeros", "ones"):
+                return rules.constant(s, device)
+            return rules.place(init_param(gen, s, device), s)
+
+        return tree_map(leaf, specs)
 
     def init_args(self, seed: int = 0, device: torch.device | str = "cuda") -> tuple:
         return tuple(self.init_arg(i, seed, device) for i in range(len(self.arg_specs)))
@@ -91,6 +121,23 @@ def _shape_cfg(arch: A.Arch, shape: A.ShapeSpec) -> A.Arch:
         window = 12 if shape.img % (cfg.patch * 12 * 8) == 0 else cfg.window
         cfg = dataclasses.replace(cfg, img_res=shape.img, window=window)
     return dataclasses.replace(arch, cfg=cfg)
+
+
+def _with_rules(rules: MeshRules | None, fn: Callable) -> Callable:
+    """``fn`` run under ``activation_rules(rules)``; ``fn`` itself without."""
+    if rules is None:
+        return fn
+
+    def wrapped(*args):
+        with activation_rules(rules):
+            return fn(*args)
+
+    return wrapped
+
+
+# The ROADMAP entry (§1, "Still to port") that each kind waits for under rules.
+RULES_ENTRY = {"denoise_step": "item 8.2", "classify_serve": "item 8.2", "train": "item 8.3",
+               "denoise_train": "item 8.3", "classify_train": "item 8.3"}
 
 
 def _loss_fn(arch: A.Arch, kind: str) -> Callable:
@@ -179,9 +226,10 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
     (> 1 splits the global batch into microbatches and accumulates their
     gradients before one update: the elastic-restart lever that keeps the
     global batch when the data axis shrinks)."""
-    if rules is not None:
-        raise NotImplementedError("mesh rules are not ported: the port runs on one card (ROADMAP item 8)")
     shape = arch.shape(shape_name)
+    if rules is not None and shape.kind in RULES_ENTRY:
+        raise NotImplementedError(f"{arch.name}/{shape.name}: the {shape.kind} kind under mesh rules is not ported "
+                                  f"(ROADMAP {RULES_ENTRY[shape.kind]})")
     arch = _shape_cfg(arch, shape)
     cfg = arch.cfg
     param_specs, state_specs = A.abstract_params(arch)
@@ -211,7 +259,8 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
         def prefill_fn(params, batch):
             return lm.prefill(cfg, params, batch["tokens"])
 
-        return CellProgram(name, shape.kind, prefill_fn, (serve_params, in_specs), meta=meta)
+        return CellProgram(name, shape.kind, _with_rules(rules, prefill_fn), (serve_params, in_specs), meta=meta,
+                           rules=rules)
 
     if shape.kind == "decode":
         cache = lm.cache_specs(cfg, shape.batch, shape.seq)
@@ -219,7 +268,8 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
         def decode_fn(params, cache, batch):
             return lm.decode_step(cfg, params, batch["token"], cache)
 
-        return CellProgram(name, shape.kind, decode_fn, (serve_params, cache, in_specs), donate=(1,), meta=meta)
+        return CellProgram(name, shape.kind, _with_rules(rules, decode_fn), (serve_params, cache, in_specs),
+                           donate=(1,), meta=meta, rules=rules)
 
     if shape.kind == "denoise_step":
         if arch.family == "dit":

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import sys
 from typing import Any, Callable, Iterable
 
 import torch
@@ -96,12 +97,27 @@ def stack_specs(specs: Tree, n: int) -> Tree:
     return tree_map(lambda s: dataclasses.replace(s, shape=(n, *s.shape), axes=("layers", *s.axes)), specs)
 
 
+def unstack(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``torch.unbind(t, 0)``: views of each entry of a stacked leaf.  A
+    DTensor (replicated along its stack) unbinds its local tensor, and each
+    view is a DTensor laid out as ``t`` without that dim, so an in-place
+    write to one lands in ``t``."""
+    if not is_dtensor(t):
+        return torch.unbind(t, 0)
+    from torch.distributed.tensor import Shard
+
+    if any(p.is_shard(0) for p in t.placements):
+        raise ValueError(f"unstack of a DTensor split along its stack: {t.placements}")
+    placements = [Shard(p.dim - 1) if p.is_shard() else p for p in t.placements]
+    return tuple(like(t, part, placements) for part in torch.unbind(t.to_local(), 0))
+
+
 def unstack_tree(tree: Tree) -> list[Tree]:
     """Every layer of a stacked tree, from one ``torch.unbind`` a leaf.  Under
     autograd an unbind's backward stacks the layers' gradients once, where
     indexing a layer at a time would scatter each layer's into a zero-filled
     copy of the whole stack."""
-    per_leaf = tree_map(lambda t: torch.unbind(t, 0), tree)
+    per_leaf = tree_map(unstack, tree)
     n = len(tree_leaves(per_leaf)[0])
     return [tree_map(lambda parts: parts[i], per_leaf) for i in range(n)]
 
@@ -188,6 +204,74 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
 
 def current_rules():
     return _ACTIVE_RULES[-1] if _ACTIVE_RULES else None
+
+
+# ---------------------------------------------------------------------------
+# Local shards.  A step over ranks (``launch/steps.build_cell`` with rules)
+# takes DTensors; the layers compute on each rank's local shards and meet the
+# other ranks only through ``sharding.rules``' collectives and ``shard``.  On
+# a plain tensor these helpers are the identity (``local_slice``: the whole
+# dim, split over no axis), so one code path serves one card and many ranks.
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(x: Any) -> bool:
+    tensor_mod = sys.modules.get("torch.distributed.tensor")  # no DTensor exists before it is loaded
+    return tensor_mod is not None and isinstance(x, tensor_mod.DTensor)
+
+
+def local(x: Any) -> Any:
+    """A DTensor's local tensor (the tensor itself, so in-place writes land
+    in the DTensor); anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def mesh_of(x: Any) -> Any:
+    """A DTensor's ``DeviceMesh``; ``None`` for a plain tensor."""
+    return x.device_mesh if is_dtensor(x) else None
+
+
+def local_slice(t: torch.Tensor, dim: int) -> tuple[slice, tuple[str, ...]]:
+    """The part of dimension ``dim`` of ``t`` that this rank holds (a head,
+    MLP, vocabulary, expert or cache-slot range), and the mesh axes that
+    split it, outermost first (``()``: the whole dim)."""
+    if not is_dtensor(t):
+        return slice(0, t.shape[dim]), ()
+    mesh = t.device_mesh
+    coord, axes, index, n = mesh.get_coordinate(), [], 0, 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            index, n = index * mesh.size(i) + coord[i], n * mesh.size(i)
+            axes.append(mesh.mesh_dim_names[i])
+    size = t.shape[dim] // n
+    return slice(index * size, (index + 1) * size), tuple(axes)
+
+
+def on_mesh(y: torch.Tensor, mesh: Any, dims: dict[int, tuple[str, ...]]) -> torch.Tensor:
+    """The local tensor ``y`` as a DTensor on ``mesh`` whose dim ``d`` is
+    split over the mesh axes ``dims[d]`` (the rest replicated); ``y`` itself
+    where ``mesh`` is None.  No collective."""
+    if mesh is None:
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+
+    owner = {a: d for d, axes in dims.items() for a in axes}
+    placements = [Shard(owner[a]) if a in owner else Replicate() for a in mesh.mesh_dim_names]
+    return _from_local(y, mesh, placements)
+
+
+def like(ref: Any, y: torch.Tensor, placements=None) -> torch.Tensor:
+    """The local tensor ``y`` laid out as DTensor ``ref`` (or with
+    ``placements`` on its mesh); ``y`` itself where ``ref`` is plain."""
+    if not is_dtensor(ref):
+        return y
+    return _from_local(y, ref.device_mesh, ref.placements if placements is None else placements)
+
+
+def _from_local(y: torch.Tensor, mesh: Any, placements) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(y, mesh, placements, run_check=False)
 
 
 # ---------------------------------------------------------------------------

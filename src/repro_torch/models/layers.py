@@ -22,6 +22,16 @@ the host, and a decode step's length lives on the device.  The cache is
 written in place (the reference donates it) at a tensor index, so a decode
 step makes no host read.
 
+Over ranks (``launch/steps.build_cell`` with mesh rules) the layers take
+DTensors and compute on each rank's local shards, as the reference's GSPMD
+partitions them: ``attention`` and ``swiglu`` / ``mlp`` column-parallel in,
+row-parallel out, with one explicit sum over the ``model`` axis; the flash
+kernel on the rank's own heads; ``attention_decode`` over the rank's cache
+slots, merged across the slots' axes (``_sdpa_split``); ``moe`` on the
+rank's experts.  Every collective goes through ``sharding.rules``.  On
+plain tensors the helpers of ``models.common`` are identities, so the same
+code runs on one card.
+
 On ``meta`` tensors (``launch/dryrun`` sizing a step) ``_attend`` takes the
 reference's branches, the program without the kernel; under
 ``flash_accounting`` both attentions return ``_flash_stub`` instead, which
@@ -37,7 +47,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import NEG_INF, blockwise_sdpa
-from .common import spec
+from ..sharding.rules import all_gather, all_max, all_sum
+from .common import like, local, local_slice, mesh_of, on_mesh, spec, tree_map
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -211,17 +222,56 @@ def _attend(c: AttnCfg, q, k, v, mask=None):
     return _sdpa(c, q, k, v, mask)
 
 
+def _kv_for_heads(k, v, heads: slice, kv_heads: slice, G: int):
+    """The K/V heads that query heads ``heads`` read (head h reads KV head
+    h // G), from k, v holding KV heads ``kv_heads``: a run of whole groups
+    keeps the grouping; a rank whose query heads split a group (heads over
+    ``model``, KV heads replicated) gives each query head its own KV head."""
+    n = heads.stop - heads.start
+    if heads.start % G == 0 and n % G == 0:
+        a = heads.start // G - kv_heads.start
+        return k[:, :, a:a + n // G], v[:, :, a:a + n // G]
+    idx = torch.arange(heads.start, heads.stop, device=k.device) // G - kv_heads.start
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _partial(eq: str, h, w, axes):
+    """``einsum(eq, h, w)`` of a row-parallel weight: in f32 where its
+    contracted rows split over the mesh ``axes`` (a partial sum, which
+    ``_summed`` adds over the ranks and rounds once to the activations'
+    dtype, as one card's matmul rounds its whole sum once), else in h's
+    dtype."""
+    if axes:
+        return torch.einsum(eq, h.float(), w.float())
+    return torch.einsum(eq, h, w.to(h.dtype))
+
+
+def _summed(y, mesh, axes, dtype):
+    """The ranks' partials ``y`` summed over the mesh ``axes`` in ``y``'s
+    dtype, then cast to ``dtype``; ``y`` itself where nothing splits."""
+    return all_sum(y, mesh, axes).to(dtype) if axes else y
+
+
 def attention(c: AttnCfg, p, x, *, positions=None, mask=None):
-    """Full (training/prefill) attention. x: [B,S,D] -> (y [B,S,D], (k, v))."""
-    B, S, _ = x.shape
+    """Full (training/prefill) attention. x: [B,S,D] -> (y [B,S,D], (k, v)).
+
+    Over ranks: each rank projects its own heads (``wq``/``wk``/``wv``
+    column-parallel), attends over them, and ``wo``'s row-parallel partial
+    sums meet in one sum over the heads' mesh axes; (k, v) come back as
+    DTensors of the rank's KV heads."""
+    mesh, xl, lp = mesh_of(x), local(x), tree_map(local, p)
+    B, S, _ = xl.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q, k, v = _qkv(c, p, x, positions)
-    out = _attend(c, q, k, v, mask)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+        positions = torch.arange(S, device=xl.device)[None, :].expand(B, S)
+    q, k, v = _qkv(c, lp, xl, local(positions))
+    heads, head_axes = local_slice(p["wq"], 1)
+    kv_heads, kv_axes = local_slice(p["wk"], 1)
+    out = _attend(c, q, *_kv_for_heads(k, v, heads, kv_heads, c.n_heads // c.n_kv_heads), mask)
+    y = _summed(_partial("bshk,hkd->bsd", out, lp["wo"], head_axes), mesh, head_axes, xl.dtype)
     if c.bias:
-        y = y + p["bo"].to(x.dtype)
-    return y, (k, v)
+        y = y + lp["bo"].to(xl.dtype)
+    batch = local_slice(x, 0)[1]
+    return like(x, y), tuple(on_mesh(t, mesh, {0: batch, 2: kv_axes}) for t in (k, v))
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -239,6 +289,23 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) ->
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
+def _sdpa_split(q, k, v, valid, mesh, axes):
+    """``_sdpa`` over KV slots split over the mesh ``axes``, in the flash
+    kernel's arithmetic: this rank's scores in f32 with the reference's
+    -1e30 masks, their max over the ranks, then exp and the local sums of
+    p and p·v in f32, one sum over the ranks, and acc / l after it."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    q = q.to(torch.float32).reshape(B, S, KH, H // KH, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32)) / math.sqrt(hd)
+    logits = logits.masked_fill(~valid, NEG_INF)
+    p = torch.exp(logits - all_max(logits.amax(-1, keepdim=True), mesh, axes))
+    acc = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
+    acc = all_sum(torch.cat([acc, p.sum(-1, keepdim=True)], -1), mesh, axes)
+    out = acc[..., :hd] / acc[..., hd:]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
 def attention_decode(
     c: AttnCfg, p, x, cache_k, cache_v, cache_len, *, kv_seq_axis="kv_seq",
     k_scale=None, v_scale=None,
@@ -251,41 +318,72 @@ def attention_decode(
     while the validity mask uses the unclamped length.  With k_scale/v_scale
     [B,T,KH] the cache is int8.  The caches (and scales) are updated in place
     and returned: (y [B,1,D], cache_k, cache_v[, k_scale, v_scale]).
-    ``kv_seq_axis`` names the reference's sharding axis; one card has none.
+
+    Over ranks the cache is split as its placements say (``kv_seq_axis``,
+    the reference's logical axis, resolved so when the cache was made): the
+    rank holding the new token's slot writes it, every rank attends over its
+    own slots for the query heads of the KV heads it holds, and where the
+    slots are split the partials merge (``_sdpa_split``); ``wo`` is
+    row-parallel, one sum.
     """
     del kv_seq_axis
-    B, S, _ = x.shape
+    mesh, xl, lp = mesh_of(x), local(x), tree_map(local, p)
+    B, S, _ = xl.shape
     if S != 1:
         raise ValueError(f"attention_decode takes one token, got x of shape {tuple(x.shape)}")
     T = cache_k.shape[1]
     quantized = k_scale is not None
-    length = cache_len.reshape(())
-    q, k_new, v_new = _qkv(c, p, x, length.reshape(1, 1).expand(B, 1))
-    idx = length.to(torch.int64).clamp(0, T - 1).reshape(1)
+    length = local(cache_len).reshape(())
+    q, k_new, v_new = _qkv(c, lp, xl, length.reshape(1, 1).expand(B, 1))
+    heads, head_axes = local_slice(p["wq"], 1)
+    kv_heads, kv_axes = local_slice(p["wk"], 1)
+    slots, slot_axes = local_slice(cache_k, 1)
+    held = local_slice(cache_k, 2)[0]  # the KV heads this rank's cache holds
+    if held != kv_heads:
+        k_new, v_new = (all_gather(t, 2, mesh, kv_axes)[:, :, held] for t in (k_new, v_new))
+    idx = length.to(torch.int64).clamp(0, T - 1) - slots.start
+    at = idx.clamp(0, slots.stop - slots.start - 1).reshape(1)
+    mine = (idx >= 0) & (idx < slots.stop - slots.start)
+    ck, cv = local(cache_k), local(cache_v)
+
+    def put(buf, new):
+        new = new.to(buf.dtype)
+        if slot_axes:  # another rank may hold the slot: this one writes back what it has
+            new = torch.where(mine, new, buf.index_select(1, at))
+        buf.index_copy_(1, at, new)
+
     if quantized:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        for buf, new in ((cache_k, kq), (cache_v, vq), (k_scale, ks), (v_scale, vs)):
-            buf.index_copy_(1, idx, new)
+        for buf, new in ((ck, kq), (cv, vq), (local(k_scale), ks), (local(v_scale), vs)):
+            put(buf, new)
     else:
-        cache_k.index_copy_(1, idx, k_new.to(cache_k.dtype))
-        cache_v.index_copy_(1, idx, v_new.to(cache_v.dtype))
+        put(ck, k_new)
+        put(cv, v_new)
     if _FLASH_ACCOUNTING:  # a kernel reads the cache at its stored width (int8 when quantized)
-        out = _flash_stub(q, cache_k, cache_v)
+        out = _flash_stub(q, ck, cv)
     else:
         if quantized:
-            k_full = dequantize_kv(cache_k, k_scale, q.dtype)
-            v_full = dequantize_kv(cache_v, v_scale, q.dtype)
+            k_full = dequantize_kv(ck, local(k_scale), q.dtype)
+            v_full = dequantize_kv(cv, local(v_scale), q.dtype)
         else:
-            k_full, v_full = cache_k.to(q.dtype), cache_v.to(q.dtype)
-        valid = (torch.arange(T, device=x.device) <= length).reshape(1, 1, 1, 1, T)
-        out = _sdpa(c, q, k_full, v_full, valid)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+            k_full, v_full = ck.to(q.dtype), cv.to(q.dtype)
+        G = c.n_heads // c.n_kv_heads
+        qs = slice(held.start * G, held.stop * G)  # the query heads of the KV heads held here
+        if qs != heads:
+            q = all_gather(q, 2, mesh, head_axes)[:, :, qs]
+        valid = (torch.arange(slots.start, slots.stop, device=xl.device) <= length).reshape(1, 1, 1, 1, -1)
+        if slot_axes:
+            out = _sdpa_split(q, k_full, v_full, valid, mesh, slot_axes).to(q.dtype)
+        else:
+            out = _sdpa(c, q, k_full, v_full, valid)
+        out = out[:, :, heads.start - qs.start:heads.stop - qs.start]
+    y = _summed(_partial("bshk,hkd->bsd", out, lp["wo"], head_axes), mesh, head_axes, xl.dtype)
     if c.bias:
-        y = y + p["bo"].to(x.dtype)
+        y = y + lp["bo"].to(xl.dtype)
     if quantized:
-        return y, cache_k, cache_v, k_scale, v_scale
-    return y, cache_k, cache_v
+        return like(x, y), cache_k, cache_v, k_scale, v_scale
+    return like(x, y), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +399,18 @@ def swiglu_specs(d_model: int, d_ff: int, embed_axis: str = "embed") -> dict:
     }
 
 
-def swiglu(p, x):
+def _swiglu_hidden(p, x):
     g = torch.einsum("...d,df->...f", x, p["w_gate"].to(x.dtype))
     u = torch.einsum("...d,df->...f", x, p["w_up"].to(x.dtype))
-    return torch.einsum("...f,fd->...d", F.silu(g) * u, p["w_down"].to(x.dtype))
+    return F.silu(g) * u
+
+
+def swiglu(p, x):
+    """Over ranks: column-parallel ``w_gate``/``w_up``, row-parallel
+    ``w_down`` on the rank's MLP slice, one sum."""
+    xl, lp, axes = local(x), tree_map(local, p), local_slice(p["w_gate"], 1)[1]
+    y = _partial("...f,fd->...d", _swiglu_hidden(lp, xl), lp["w_down"], axes)
+    return like(x, _summed(y, mesh_of(x), axes, xl.dtype))
 
 
 def mlp_specs(d_model: int, d_ff: int, out_dim: int | None = None) -> dict:
@@ -323,8 +429,13 @@ def _gelu(x):
 
 
 def mlp(p, x, act=_gelu):
-    h = act(torch.einsum("...d,df->...f", x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype))
-    return torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
+    """Over ranks: column-parallel ``w1``, row-parallel ``w2``, one sum,
+    then ``b2``."""
+    xl, lp = local(x), tree_map(local, p)
+    h = act(torch.einsum("...d,df->...f", xl, lp["w1"].to(xl.dtype)) + lp["b1"].to(xl.dtype))
+    axes = local_slice(p["w1"], 1)[1]
+    y = _summed(_partial("...f,fd->...d", h, lp["w2"], axes), mesh_of(x), axes, xl.dtype)
+    return like(x, y + lp["b2"].to(xl.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -409,13 +520,21 @@ def moe(c: MoECfg, p, x):
     combine is an ``index_add_`` in the activation dtype: on CUDA its adds are
     atomic and unordered, so a bf16 output may differ between runs in the
     last bits.
+
+    Over ranks the experts are split (EP, the reference's ``[E, B, C, D]``
+    buffer sharded on E): the router's logits are gathered, every rank
+    routes alike, runs its own experts' slots and scatter-adds them onto the
+    tokens, and the partial outputs meet in one sum (the reference's psum
+    formulation), the shared experts' row-parallel partials with them.
     """
-    B, S, D = x.shape
+    mesh, xl, lp = mesh_of(x), local(x), tree_map(local, p)
+    B, S, D = xl.shape
     K, E = c.top_k, c.n_experts
     N = S * K
     capacity = int(max(1, round(N / E * c.capacity_factor)))
 
-    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)).to(torch.float32)
+    logits = torch.einsum("bsd,de->bse", xl, lp["router"].to(xl.dtype)).to(torch.float32)
+    logits = all_gather(logits, 2, mesh, local_slice(p["router"], 1)[1])
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = _top_k(probs, K)  # [B, S, K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -423,29 +542,43 @@ def moe(c: MoECfg, p, x):
     eid_flat = top_e.reshape(B, N)
     token_idx, slot_valid, _pos, _kept = _dispatch_indices(eid_flat, E, capacity)
     # token_idx: [B, E, C] flat indices into S*K; the source token is i // K.
-    src_tok = (token_idx // K).reshape(B, E * capacity)
-    buf = x.gather(1, src_tok[..., None].expand(B, E * capacity, D)).reshape(B, E, capacity, D)
+    # This rank runs the slots of its experts (all of them on one card).
+    experts, expert_axes = local_slice(p["experts"]["w_gate"], 0)
+    token_idx, slot_valid = token_idx[:, experts], slot_valid[:, experts]
+    n_local = token_idx.shape[1]
+    src_tok = (token_idx // K).reshape(B, n_local * capacity)
+    buf = xl.gather(1, src_tok[..., None].expand(B, n_local * capacity, D)).reshape(B, n_local, capacity, D)
     buf = buf.masked_fill(~slot_valid[..., None], 0.0).transpose(0, 1)  # [E, B, C, D]
 
-    w = p["experts"]
+    w = lp["experts"]
+    axes = expert_axes + local_slice(p["experts"]["w_gate"], 2)[1]  # an expert's MLP splits where E cannot
     g = torch.einsum("ebcd,edf->ebcf", buf, w["w_gate"].to(buf.dtype))
     u = torch.einsum("ebcd,edf->ebcf", buf, w["w_up"].to(buf.dtype))
-    out_buf = torch.einsum("ebcf,efd->ebcd", F.silu(g) * u, w["w_down"].to(buf.dtype))
+    out_buf = _partial("ebcf,efd->ebcd", F.silu(g) * u, w["w_down"], axes)
 
     # slot weight: the routing weight of the token occupying slot (b, e, c).
-    slot_w = top_w.reshape(B, N).gather(1, token_idx.reshape(B, -1)).reshape(B, E, capacity)
+    slot_w = top_w.reshape(B, N).gather(1, token_idx.reshape(B, -1)).reshape(B, n_local, capacity)
     slot_w = torch.where(slot_valid, slot_w, 0.0)
     upd = out_buf.transpose(0, 1) * slot_w[..., None].to(out_buf.dtype)  # [B, E, C, D]
-    rows = (torch.arange(B, device=x.device)[:, None] * S + src_tok).reshape(-1)
-    y = torch.zeros(B * S, D, dtype=upd.dtype, device=x.device)
+    rows = (torch.arange(B, device=xl.device)[:, None] * S + src_tok).reshape(-1)
+    y = torch.zeros(B * S, D, dtype=upd.dtype, device=xl.device)
     y = y.index_add_(0, rows, upd.reshape(-1, D)).reshape(B, S, D)
 
     if c.n_shared > 0:
-        y = y + swiglu(p["shared"], x)
+        shared_axes = local_slice(p["shared"]["w_gate"], 1)[1]
+        shared = _partial("...f,fd->...d", _swiglu_hidden(lp["shared"], xl), lp["shared"]["w_down"], shared_axes)
+        if shared_axes != axes:
+            y, shared = _summed(y, mesh, axes, xl.dtype), _summed(shared, mesh, shared_axes, xl.dtype)
+            axes = ()
+        y = y + shared
+    y = _summed(y, mesh, axes, xl.dtype)
 
     # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
     me = probs.mean(dim=(0, 1))  # mean router prob per expert
-    ones = torch.ones(B * N, dtype=torch.float32, device=x.device)
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(0, eid_flat.reshape(-1), ones) / float(B * N)
+    ones = torch.ones(B * N, dtype=torch.float32, device=xl.device)
+    ce = torch.zeros(E, dtype=torch.float32, device=xl.device).index_add_(0, eid_flat.reshape(-1), ones) / float(B * N)
+    batch_axes = local_slice(x, 0)[1]
+    if batch_axes:  # the global batch's means: the mean of the ranks' (equal batches)
+        me, ce = (all_sum(torch.cat([me, ce]), mesh, batch_axes) / (x.shape[0] // B)).split(E)
     aux = c.router_aux_weight * E * torch.sum(me * ce)
-    return y, aux
+    return like(x, y), aux

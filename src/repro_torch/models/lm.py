@@ -10,6 +10,15 @@ Entry points:
   prefill(cfg, params, tokens)              logits[:, -1:] + stacked KV cache
   decode_step(cfg, params, token, cache)    one-token decode, cache in place
 
+Under mesh rules (``launch/steps.build_cell(..., rules=)``, a step over
+``torch.distributed`` ranks) the arguments are DTensors and the layers
+compute on each rank's shards (``models/layers``); the reference's
+sharding points are kept (``_res_shard``, ``_unshard_seq``, the logits on
+``vocab``, the cache on its ``kv_seq_axis``), and each is a
+``common.shard``: the identity on one card, an explicit redistribute over
+ranks.  The embedding is looked up on the rank's ``embed_tp`` slice and
+gathered by the first ``_res_shard``.
+
 Prefill attention goes through ``layers.attention``, so on the card every
 layer launches the flash kernel (causal); decode keeps the reference's
 masked ``_sdpa`` over the whole cache.  A forward that builds an autograd
@@ -23,10 +32,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import layers as L
-from .common import checkpointed, shard, spec, stack_specs, unstack_tree
+from .common import (checkpointed, current_rules, like, local, local_slice, mesh_of, on_mesh, shard, spec,
+                     stack_specs, tree_map, unstack, unstack_tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +57,10 @@ class LMConfig:
     # Gradient rematerialization: each block is checkpointed while an autograd
     # graph is built (``forward``); no effect without one.
     remat: bool = True
-    # The reference's sharding settings: sequence-sharded residuals between
-    # blocks and the KV cache's logical sequence axis.  The port runs on one
-    # card, so they are carried and have no effect.
+    # Shard the sequence dim of residual activations over "model" between
+    # blocks (Megatron-SP style; set per shape for training), and the KV
+    # cache's sequence-dim logical axis ("kv_seq" or "long_kv_seq").  Both
+    # act only under mesh rules.
     seq_shard_acts: bool = False
     kv_seq_axis: str = "kv_seq"
     # int8 KV cache (per-token/head scales): halves the decode memory term.
@@ -101,15 +113,32 @@ def _ffn(c: LMConfig, blk, h):
 
 
 def _embed(params, tokens):
-    return params["embed"].to(torch.bfloat16)[tokens]
+    """The rows of ``tokens``; over ranks, of the rank's ``embed_tp`` slice
+    (the lookup stays local), laid out batch as ``tokens``."""
+    emb = params["embed"]
+    x = local(emb).to(torch.bfloat16)[local(tokens)]
+    return on_mesh(x, mesh_of(emb), {0: local_slice(tokens, 0)[1], 2: local_slice(emb, 1)[1]})
+
+
+def _res_shard(c: LMConfig, x):
+    return shard(x, "batch", "act_seq" if c.seq_shard_acts else "seq", None)
+
+
+def _unshard_seq(c: LMConfig, h):
+    """Megatron-SP gather point: with seq-sharded residuals, the full
+    sequence once per sublayer, where gathering x is cheaper than gathering
+    K and V (2 * n_kv * head_dim >= d_model), as the reference."""
+    if c.seq_shard_acts and 2 * c.n_kv_heads * c.hd >= c.d_model:
+        return shard(h, "batch", None, None)
+    return h
 
 
 def _block(c: LMConfig, blk, x):
     """One layer over the whole sequence: (x, its (k, v), MoE aux loss)."""
-    a, kv = L.attention(c.attn_cfg(), blk["attn"], L.rmsnorm(blk["ln1"], x, c.norm_eps))
-    x = x + a
-    f, aux = _ffn(c, blk, L.rmsnorm(blk["ln2"], x, c.norm_eps))
-    return x + f, kv, aux
+    a, kv = L.attention(c.attn_cfg(), blk["attn"], _unshard_seq(c, L.rmsnorm(blk["ln1"], x, c.norm_eps)))
+    x = _res_shard(c, x + a)
+    f, aux = _ffn(c, blk, _unshard_seq(c, L.rmsnorm(blk["ln2"], x, c.norm_eps)))
+    return _res_shard(c, x + f), kv, aux
 
 
 def _block_train(c: LMConfig, blk, x):
@@ -120,7 +149,7 @@ def _block_train(c: LMConfig, blk, x):
 
 def forward(c: LMConfig, params, tokens):
     """tokens [B,S] -> (hidden [B,S,D], aux loss)."""
-    x = _embed(params, tokens)
+    x = _res_shard(c, _embed(params, tokens))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = checkpointed(c.remat, _block_train)
     for blk in unstack_tree(params["blocks"]):
@@ -130,7 +159,10 @@ def forward(c: LMConfig, params, tokens):
 
 
 def logits_fn(c: LMConfig, params, hidden):
-    out = torch.einsum("bsd,dv->bsv", hidden, params["head"].to(hidden.dtype))
+    """Over ranks each rank's ``vocab`` slice, the head column-parallel."""
+    head, h = params["head"], local(hidden)
+    out = torch.einsum("bsd,dv->bsv", h, local(head).to(h.dtype))
+    out = on_mesh(out, mesh_of(hidden), {0: local_slice(hidden, 0)[1], 2: local_slice(head, 1)[1]})
     return shard(out, "batch", None, "vocab")
 
 
@@ -157,7 +189,12 @@ def _cache_shape(c: LMConfig, batch: int, max_len: int) -> tuple[int, ...]:
 
 def make_cache(c: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
                device: torch.device | str = "cuda") -> dict:
+    """An empty cache (int8: 0 with scale 1); under rules over ranks, each
+    rank's slice of it as DTensors laid out as ``cache_specs`` resolve."""
     device = resolve_device(device)
+    rules = current_rules()
+    if rules is not None and rules.mesh.device_mesh is not None:
+        return tree_map(lambda s: rules.constant(s, device), cache_specs(c, batch, max_len, dtype))
     shape = _cache_shape(c, batch, max_len)
     length = torch.zeros((), dtype=torch.int32, device=device)
     if c.kv_quant:
@@ -193,6 +230,21 @@ def cache_specs(c: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> 
     }
 
 
+def _write_kv(c: LMConfig, cache: dict, layer: int, k, v, max_len: int) -> None:
+    """Layer ``layer``'s K/V into the cache, laid out as the cache is (the
+    reference's constraint on its stacked K/V; over ranks a redistribute of
+    the rank's KV heads to its slots, after padding to ``max_len``)."""
+    for name, t in (("k", k), ("v", v)):
+        if mesh_of(t) is not None and t.shape[1] < max_len:
+            t = like(t, F.pad(local(t), (0, 0, 0, 0, 0, max_len - t.shape[1])))
+        t = local(shard(t, "batch", c.kv_seq_axis, "kv_heads", "head_dim"))
+        n = t.shape[1]  # one card: the prompt (the slots past it stay empty); over ranks: the rank's slots
+        if c.kv_quant:
+            local(cache[name])[layer, :, :n], local(cache[f"{name}_scale"])[layer, :, :n] = L.quantize_kv(t)
+        else:
+            local(cache[name])[layer, :, :n] = t
+
+
 @torch.no_grad()
 def prefill(c: LMConfig, params, tokens, max_len: int | None = None):
     """Full forward over the prompt; returns (last-token logits [B,1,V], cache).
@@ -202,18 +254,13 @@ def prefill(c: LMConfig, params, tokens, max_len: int | None = None):
     past S stay zero (int8: 0 with scale 1), as the reference's padding."""
     B, S = tokens.shape
     max_len = max_len or S
-    x = _embed(params, tokens)
+    x = _res_shard(c, _embed(params, tokens))
     cache = make_cache(c, B, max_len, x.dtype, device=x.device)  # bf16, the embedding's cast
     for layer, blk in enumerate(unstack_tree(params["blocks"])):
         x, (k, v), _ = _block(c, blk, x)
-        if c.kv_quant:
-            (cache["k"][layer, :, :S], cache["k_scale"][layer, :, :S]) = L.quantize_kv(k)
-            (cache["v"][layer, :, :S], cache["v_scale"][layer, :, :S]) = L.quantize_kv(v)
-        else:
-            cache["k"][layer, :, :S] = k
-            cache["v"][layer, :, :S] = v
-    x = L.rmsnorm(params["ln_f"], x[:, -1:, :], c.norm_eps)
-    cache["len"].fill_(S)
+        _write_kv(c, cache, layer, k, v, max_len)
+    x = L.rmsnorm(params["ln_f"], like(x, local(x)[:, -1:, :]), c.norm_eps)
+    local(cache["len"]).fill_(S)
     return logits_fn(c, params, x), cache
 
 
@@ -222,12 +269,12 @@ def decode_step(c: LMConfig, params, token, cache):
     """token [B,1] int; cache from make_cache/prefill.  Returns (logits
     [B,1,V], cache): the cache's tensors are updated in place (the reference
     donates them) and the returned dict holds them with ``len`` + 1."""
-    x = _embed(params, token)
-    quant = c.kv_quant
+    x = shard(_embed(params, token), "batch", None, None)
+    layers = {k: unstack(cache[k]) for k in ("k", "v", "k_scale", "v_scale") if k in cache}
     for layer, blk in enumerate(unstack_tree(params["blocks"])):
         h = L.rmsnorm(blk["ln1"], x, c.norm_eps)
-        scales = {"k_scale": cache["k_scale"][layer], "v_scale": cache["v_scale"][layer]} if quant else {}
-        a = L.attention_decode(c.attn_cfg(), blk["attn"], h, cache["k"][layer], cache["v"][layer], cache["len"],
+        scales = {"k_scale": layers["k_scale"][layer], "v_scale": layers["v_scale"][layer]} if c.kv_quant else {}
+        a = L.attention_decode(c.attn_cfg(), blk["attn"], h, layers["k"][layer], layers["v"][layer], cache["len"],
                                kv_seq_axis=c.kv_seq_axis, **scales)[0]
         x = x + a
         f, _ = _ffn(c, blk, L.rmsnorm(blk["ln2"], x, c.norm_eps))

@@ -14,20 +14,27 @@ compares as that plain tuple and keeps its mesh, as the reference's
 ``NamedSharding`` does.  On a mesh over a process group a spec becomes
 DTensor placements (:meth:`MeshRules.placements`): mesh dim ``i`` is
 ``Shard(d)`` where tensor dim ``d`` names its axis, else ``Replicate()``.
+
+A step over ranks computes on each rank's local shards and meets the other
+ranks only through this module: :func:`redistribute` (what ``constrain``,
+and so ``models.common.shard``, does to a DTensor) and the explicit
+collectives :func:`all_sum`, :func:`all_max` and :func:`all_gather` over
+named mesh axes.  Each of them stages a CUDA tensor through the host where
+the group is gloo, and adds what it issued to :data:`COLLECTIVES`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
-import sys
 from typing import Any, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..launch.mesh import Mesh
-from ..models.common import ParamSpec, tree_map
+from ..models.common import ParamSpec, is_dtensor, tree_map
 
 Rules = Mapping[str, Any]  # logical name -> mesh axis | tuple of axes | None
 Spec = tuple  # per dimension: None | axis name | tuple of axis names
@@ -163,13 +170,50 @@ class MeshRules:
     def placements(self, spec: Spec) -> list:
         return placements(self.mesh, spec)
 
+    def local_shape(self, s: ParamSpec) -> tuple[int, ...]:
+        """The shape of this rank's slice of a leaf of spec ``s``."""
+        shape = list(s.shape)
+        for entry, d in ((e, d) for d, e in enumerate(self.spec_sharding(s)) if e is not None):
+            shape[d] //= math.prod(self.mesh.shape[a] for a in (entry if isinstance(entry, tuple) else (entry,)))
+        return tuple(shape)
+
+    def place(self, x: torch.Tensor, s: ParamSpec) -> torch.Tensor:
+        """``x``, every rank's whole copy of a leaf of spec ``s``, laid out as
+        ``s`` resolves: a DTensor of this rank's slice, copied so that ``x``
+        can be freed (no collective: every rank holds the whole); ``x``
+        itself over a mesh without devices, which must be one device."""
+        dm = self.mesh.device_mesh
+        if dm is None:
+            if self.mesh.size != 1:
+                raise ValueError(f"place() over a {self.mesh.shape} mesh without devices: start a process group")
+            return x
+        from torch.distributed.tensor import DTensor
+
+        target = self.placements(self.spec_sharding(s))
+        coord, local = dm.get_coordinate(), x
+        for i, p in enumerate(target):  # mesh dim 0 outermost, as DTensor nests shards
+            if p.is_shard():
+                local = local.chunk(dm.size(i), p.dim)[coord[i]]
+        return DTensor.from_local(local.clone(memory_format=torch.contiguous_format), dm, target, run_check=False)
+
+    def constant(self, s: ParamSpec, device: torch.device | str) -> torch.Tensor:
+        """A leaf of spec ``s`` whose ``init`` is "zeros" or "ones", made as
+        this rank's slice only (a DTensor; the whole leaf over a mesh
+        without devices)."""
+        fill = {"zeros": torch.zeros, "ones": torch.ones}[s.init]
+        if self.mesh.device_mesh is None:
+            return fill(s.shape, dtype=s.dtype, device=device)
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(fill(self.local_shape(s), dtype=s.dtype, device=device), self.mesh.device_mesh,
+                                  self.placements(self.spec_sharding(s)), run_check=False)
+
     def constrain(self, x: torch.Tensor, axes: Sequence[str | None]) -> torch.Tensor:
         """``x`` laid out as ``axes`` resolve on this mesh, values unchanged:
         a DTensor is redistributed; a plain tensor passes as it is over a
         one-device mesh, where every spec resolves to replicated, and is
         refused over a larger one, where it would silently stay whole."""
-        tensor_mod = sys.modules.get("torch.distributed.tensor")  # no DTensor exists before it is loaded
-        if tensor_mod is not None and isinstance(x, tensor_mod.DTensor):
+        if is_dtensor(x):
             if self.mesh.device_mesh is None:
                 raise ValueError(f"constrain({tuple(axes)}) of a DTensor on a mesh without devices {self.mesh.shape}")
             return redistribute(x, self.placements(self.logical(x.shape, axes)))
@@ -179,14 +223,76 @@ class MeshRules:
         return x
 
 
+# Collectives issued through this module since the process started, by kind
+# ("sum", "max", "gather": one per mesh axis of extent > 1; "redistribute":
+# one per call that moves data).
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective of ``x`` over ``group`` goes through a host copy:
+    a CUDA tensor on a gloo group (see :func:`redistribute`)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _axes(mesh, axes) -> list[str]:
+    """The mesh axes of ``axes`` (a name or a tuple of names) that have more
+    than one rank: the others need no collective."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return [a for a in axes if mesh.size(mesh.mesh_dim_names.index(a)) > 1] if axes else []
+
+
+def _reduce(x: torch.Tensor, mesh, axes, op, kind: str) -> torch.Tensor:
+    for a in _axes(mesh, axes):
+        group = mesh.get_group(a)
+        buf = x.cpu() if _staged(x, group) else x.contiguous().clone()
+        dist.all_reduce(buf, op=op, group=group)
+        x = buf.to(x.device)
+        COLLECTIVES[kind] += 1
+    return x
+
+
+def all_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of the local tensor ``x`` over the ranks along mesh ``axes``
+    of the ``DeviceMesh`` ``mesh`` (``x`` itself where no axis splits)."""
+    return _reduce(x, mesh, axes, dist.ReduceOp.SUM, "sum")
+
+
+def all_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks along mesh ``axes``."""
+    return _reduce(x, mesh, axes, dist.ReduceOp.MAX, "max")
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """The local tensors of the ranks along mesh ``axes`` joined on ``dim``,
+    nested as a DTensor nests a dim sharded over them (the first axis
+    outermost): the inverse of a ``Shard(dim)`` on each."""
+    for a in reversed(_axes(mesh, axes)):
+        group = mesh.get_group(a)
+        src = x.cpu() if _staged(x, group) else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        x = torch.cat(parts, dim).to(x.device)
+        COLLECTIVES["gather"] += 1
+    return x
+
+
 def redistribute(x, target: Sequence) -> Any:
-    """``x.redistribute`` to ``target`` placements on its mesh.  gloo's functional
+    """``x.redistribute`` to ``target`` placements on its mesh; ``x`` itself
+    where it is laid out so already.  gloo's functional
     collectives, which DTensor uses, crash on CUDA tensors (torch 2.11:
     a segfault in ``wait_tensor``; gloo carries CUDA ranks that share a
     card, where NCCL refuses two ranks on one device), so a CUDA DTensor on
     gloo groups redistributes a host copy over the same groups and comes
-    back to its card."""
+    back to its card.  A move that only splits replicated dims needs no
+    collective and stays on the card."""
     mesh = x.device_mesh
+    moved = [(a, b) for a, b in zip(x.placements, target) if a != b]
+    if not moved:
+        return x
+    if all(a.is_replicate() for a, _ in moved):
+        return x.redistribute(mesh, target)
+    COLLECTIVES["redistribute"] += 1
     if mesh.device_type != "cuda" or dist.get_backend(mesh.get_group(0)) != "gloo":
         return x.redistribute(mesh, target)
     from torch.distributed.device_mesh import DeviceMesh

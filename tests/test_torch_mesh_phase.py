@@ -4,7 +4,8 @@ its verdict's power to fail.
 The phase spawns four ranks of the port (gloo, a FileStore) that take the
 parent's settings: here the CPU, and ``MESH_LARGE``'s grid cut to 200
 points over 60 frames, of which the ranks run the 100 under SWEEP_TRACE.  With no earlier phase run, the parent computes the
-one-rank results itself.  The phase must pass the port as it is; then
+one-rank results itself.  Its (a)-(d) only: ``tests/test_torch_lm_mesh_phase.py``
+rehearses (e).  The phase must pass the port as it is; then
 :func:`chip_smoke.check_ranks` must fail rank results that a broken gather,
 an unsharded group, a wrong shard, a replicated constrain or a kernel
 launch would give.
@@ -29,7 +30,7 @@ import chip_smoke  # noqa: E402
 def ranks():
     with pytest.MonkeyPatch.context() as mp:
         for name, value in (("DEVICE", "cpu"), ("SWEEP_FRAMES", 60), ("SWEEP_BW", [0.5, 2.0]),
-                            ("SWEEP_RTT", [40.0, 120.0]), ("ONE_RANK", {})):
+                            ("SWEEP_RTT", [40.0, 120.0]), ("ONE_RANK", {}), ("MESH_PARTS", ("sweeps",))):
             mp.setattr(chip_smoke, name, value)
         mp.setenv("OMP_NUM_THREADS", "1")
         out = chip_smoke.phase_mesh(torch, core, session, scenariogen, configs, steps, "CPU rehearsal")

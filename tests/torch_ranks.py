@@ -243,3 +243,160 @@ def constrain_roundtrip(device: str = "cpu") -> list:
         out.append((str(dt.placements), list(dt.to_local().shape), str(dt.device),
                     bool(torch.equal(dt.full_tensor(), x))))
     return out
+
+
+class F32:
+    """A stand-in for a module's ``torch`` whose ``bfloat16`` is float32, so
+    a step that casts to bf16 computes in f32 (tests/test_torch_lm.py's)."""
+
+    def __init__(self, mod, f32):
+        self._mod, self.bfloat16 = mod, f32
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+def lm_case_arch(A, configs, case: dict):
+    """The SMOKE arch of ``case`` cut to its one shape, with its cache's
+    quantization; either package's ``arch`` and ``configs``."""
+    import dataclasses
+
+    shape = A.ShapeSpec(*case["shape"])
+    arch = dataclasses.replace(configs.get(case["arch"], smoke=True), shapes=(shape,))
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, kv_quant=case["quant"]))
+
+
+def laid_out(t) -> list:
+    """A DTensor's local tensor as numpy, with the [start, stop) of each dim
+    it holds of the global array."""
+    from repro_torch.models.common import local, local_slice
+
+    return [local(t).float().numpy() if t.is_floating_point() else local(t).numpy(),
+            [[s.start, s.stop] for s in (local_slice(t, d)[0] for d in range(t.dim()))]]
+
+
+def spec_lists(shardings) -> list:
+    """Resolved specs as lists of lists (one per dim, its mesh axes)."""
+    from repro_torch.models.common import tree_leaves
+
+    return [[[] if e is None else [e] if isinstance(e, str) else list(e) for e in s] for s in tree_leaves(shardings)]
+
+
+def lm_rule_steps(cases: dict) -> dict:
+    """Each case of ``cases`` (arch, shape, mesh, quant, the step's numpy
+    arguments) through ``build_cell(..., rules=MeshRules(mesh, serve_rules))``
+    on this rank, in f32: the mesh coordinate, ``shardings()``, the local
+    shard and its slices of every output leaf, which cache leaves the step
+    changed on this rank, and the collectives ``sharding.rules`` issued."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import local
+    from repro_torch.sharding import MeshRules, serve_rules
+    from repro_torch.sharding import rules as R
+
+    lm.torch = F32(torch, torch.float32)
+    out = {}
+    for key, case in cases.items():
+        arch = lm_case_arch(A, configs, case)
+        mesh = make_host_mesh(**case["mesh"], device="cpu")
+        rules = MeshRules(mesh, serve_rules(mesh))
+        prog = steps.build_cell(arch, case["shape"][0], rules=rules)
+        args = tuple(interop.place(a, s, rules, device="cpu") for a, s in zip(case["args"], prog.arg_specs))
+        before = {k: local(t).clone() for k, t in args[1].items()} if prog.kind == "decode" else {}
+        issued = sum(R.COLLECTIVES.values())
+        logits, cache = prog(*args)
+        out[key] = {"coord": list(mesh.device_mesh.get_coordinate()),
+                    "shardings": [spec_lists(s) for s in prog.shardings()],
+                    "logits": laid_out(logits),
+                    "cache": {k: laid_out(t) for k, t in cache.items()},
+                    "changed": {k: not torch.equal(local(cache[k]), t) for k, t in before.items()},
+                    "in_place": all(local(cache[k]).data_ptr() == local(args[1][k]).data_ptr() for k in before if k != "len"),
+                    "collectives": sum(R.COLLECTIVES.values()) - issued}
+    return out
+
+
+def comm_guard(cases: dict) -> dict:
+    """Each case's ruled step under ``CommDebugMode``: every collective the
+    step issues against those issued inside ``sharding.rules``' helpers
+    (``all_sum``, ``all_max``, ``all_gather``, ``redistribute``), counted by
+    the same mode around each helper call, and the helpers' own tally."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.sharding import MeshRules, serve_rules
+    from repro_torch.sharding import rules as R
+
+    lm.torch = F32(torch, torch.float32)
+    out = {}
+    for key, case in cases.items():
+        mesh = make_host_mesh(**case["mesh"], device="cpu")
+        rules = MeshRules(mesh, serve_rules(mesh))
+        prog = steps.build_cell(lm_case_arch(A, configs, case), case["shape"][0], rules=rules)
+        args = tuple(interop.place(a, s, rules, device="cpu") for a, s in zip(case["args"], prog.arg_specs))
+        inside, tally = [0], sum(R.COLLECTIVES.values())
+        with CommDebugMode() as mode:
+            def counted(fn):
+                def wrapped(*a, **kw):
+                    before = mode.get_total_counts()
+                    result = fn(*a, **kw)
+                    inside[0] += mode.get_total_counts() - before
+                    return result
+                return wrapped
+
+            saved = {(m, n): getattr(m, n) for m in (R, L) for n in ("all_sum", "all_max", "all_gather", "redistribute")
+                     if hasattr(m, n)}
+            for (m, n), fn in saved.items():
+                setattr(m, n, counted(fn))
+            try:
+                prog(*args)
+            finally:
+                for (m, n), fn in saved.items():
+                    setattr(m, n, fn)
+        out[key] = {"total": mode.get_total_counts(), "inside": inside[0],
+                    "by_kind": {str(k): v for k, v in mode.get_comm_counts().items()},
+                    "tally": sum(R.COLLECTIVES.values()) - tally}
+    return out
+
+
+def ruled_init(name: str, shape: tuple, mesh_args: dict, seed: int, params_np: dict) -> dict:
+    """On a ``make_host_mesh(**mesh_args)``: whether every rank's slice of
+    every leaf of ``init_args(seed)`` under ``serve_rules`` equals the same
+    slice of the unsharded draw, exactly, leaf by leaf; and whether
+    ``interop.place`` of ``interop.from_jax`` of ``params_np`` lays out each
+    leaf as ``init_args`` does."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import local, local_slice, tree_leaves
+    from repro_torch.sharding import MeshRules, serve_rules
+
+    arch = lm_case_arch(A, configs, {"arch": name, "shape": shape, "quant": False})
+    mesh = make_host_mesh(**mesh_args, device="cpu")
+    rules = MeshRules(mesh, serve_rules(mesh))
+    prog = steps.build_cell(arch, shape[0], rules=rules)
+    whole = steps.build_cell(arch, shape[0]).init_args(seed, "cpu")
+    ruled = prog.init_args(seed, "cpu")
+    equal, split = [], 0
+    for got, want in ((g, w) for a, b in zip(ruled, whole) for g, w in zip(tree_leaves(a), tree_leaves(b))):
+        part = want[tuple(local_slice(got, d)[0] for d in range(got.dim()))]
+        equal.append(local(got).dtype == want.dtype and torch.equal(local(got), part))
+        split += local(got).shape != want.shape
+    params = interop.place(interop.from_jax(arch, params_np, {}, device="cpu")[0], prog.arg_specs[0], rules,
+                           device="cpu")
+    layout = [(p.placements, p.shape) == (q.placements, q.shape) for p, q in zip(tree_leaves(params),
+                                                                                  tree_leaves(ruled[0]))]
+    return {"equal": equal, "split": split, "from_jax": layout}
