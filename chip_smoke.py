@@ -117,10 +117,10 @@ Phases (each raises on failure, so any failure exits non-zero):
                   policies: 20-point golden grids (the max_* policies also
                   under a piecewise trace, the track policies on their own
                   grid) against SWEEP_GOLDENS, the reference's numbers; then
-                  1000 points x 900 frames a policy, twice, every 40th point
-                  re-run on the host CPU bit for bit; max_utility over
+                  1000 points x 900 frames a policy, twice, every 100th
+                  point re-run on the host CPU bit for bit; max_utility over
                   10,000 points chunked against unchunked; the per-point
-                  loop on the card at 10 and 100 points; ms per point,
+                  loop on the card at 10 and 50 points; ms per point,
                   groups, rounds, host reads per round and peak card memory
  10. online       Session.run_sweep(mode="online") through the lane-batched
                   online engine (core/sim_online_batch) on device="cuda" for
@@ -129,7 +129,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   against ONLINE_GOLDENS, the reference's numbers; the
                   adaptivity bench's 1000-point grid over 60 frames, twice,
                   every point against the per-point run_online loop on the
-                  card; the same grid over 900 frames with every 10th point
+                  card; the same grid over 900 frames with every 20th point
                   re-run on the host CPU bit for bit
  11. fleet        Session.run_sweep on fleet grids through the lane-batched
                   fleet engine (core/sim_multi_batch) on device="cuda" for
@@ -141,7 +141,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   multistream bench's widths, 60 frames: 1008 points
                   (bandwidth x deadline x n_clients 2/4/8 x allocation)
                   for offload and max_*, 216 for the others, each twice,
-                  every 50th point against the per-point run_multi loop on
+                  every 100th point against the per-point run_multi loop on
                   the card and against the engine on the host CPU; ms per
                   point, groups, rounds, host reads per round, drain
                   replays, peak card memory
@@ -181,12 +181,26 @@ Phases (each raises on failure, so any failure exits non-zero):
                   the distance to one card's bf16-score decode logged as
                   a reading; ms a prefill
                   and a decode step on 4 ranks against one, collectives a
-                  step (host-staged), peak memory per rank
+                  step (host-staged), peak memory per rank; (f) the
+                  diffusion and classifier serving steps through the same
+                  build_cell(..., rules=...) (MESH_SERVE: dit-xl2 gen_fast
+                  on (2, 2), flux-dev at 2 + 2 blocks on (1, 4), vit-s16,
+                  swin-b and resnet-50 serve_b128 at batch 8,
+                  efficientnet-b7 serve_b1; full width, seed-0 bf16,
+                  zero-init leaves drawn), first on one rank here (the
+                  plain attention on f32-upcast q, k, v), then on the
+                  ranks: the flash kernel once an attention layer on each
+                  rank's heads, the output put together from the ranks
+                  within DIFF_RTOL (the implied prediction) or
+                  CLASSIFY_RTOL (the logits) of one rank's, a control
+                  for each beyond (a rank's attention partial left out,
+                  a rank's stem channels lost); ms a step on 4 ranks
+                  against one, collectives a step, peak memory per rank
  14. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
                   and in phases 7b-12 and the mesh phase's (a)-(d); its
-                  (e)'s flash launches, here and on the ranks, counted),
-                  then the contract's last line
+                  (e)'s and (f)'s flash launches, here and on the ranks,
+                  counted), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
 train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
@@ -235,6 +249,13 @@ DIFF_FLASH_SHAPES = {  # diffusion_full's attention, non-causal at the published
     (4, 4352, 4352, 24, 24, 128, False, "bfloat16"): "flux-dev",
     (16, 1280, 1280, 24, 24, 128, False, "bfloat16"): "flux-dev",
 }
+MESH_FLASH_SHAPES = {  # the mesh phase's (f): a rank's heads at its local batch (MESH_SERVE) -> the model:
+    # DiT-XL/2 gen_fast on (2, 2) (8 of 16 heads, batch 1 of 2), Flux-dev gen_fast on (1, 4) (6 of 24,
+    # batch 2), ViT-S/16 serve_b128 on (2, 2) (3 of 6, batch 4 of 8)
+    (1, 1024, 1024, 8, 8, 72, False, "bfloat16"): "dit-xl2",
+    (2, 1280, 1280, 6, 6, 128, False, "bfloat16"): "flux-dev",
+    (4, *VIT_SHAPE[:2], 3, 3, *VIT_SHAPE[4:]): VIT,
+}
 FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.py checks the same list
     # tests/test_kernels.py:140-144 (f32) and :157-168 (bf16)
     (2, 128, 128, 8, 4, 64, True, "float32"), (1, 100, 200, 4, 4, 32, False, "float32"),
@@ -264,6 +285,7 @@ FLASH_SHAPES = [  # (B, S, T, H, KH, hd, causal, dtype); tests/test_torch_cuda.p
     (1, 4096, 4096, 16, 8, 128, True, "bfloat16"), (1, 4096, 4096, 64, 8, 128, True, "bfloat16"),
     (1, 4096, 4096, 16, 16, 128, True, "bfloat16"),
     *DIFF_FLASH_SHAPES,
+    *MESH_FLASH_SHAPES,
 ]
 FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (0.05, 0.02)}  # (rtol, atol): tests/test_kernels.py's
 VIT_LOGIT_RTOL = 0.02  # max|kernel - plain attention| over max|logit| of the full-width ViT forward
@@ -477,12 +499,12 @@ SWEEP_DL = [100.0, 150.0, 200.0, 250.0, 350.0]
 SWEEP_FPS = [10.0, 15.0, 24.0, 30.0, 60.0]
 SWEEP_TRACE = {"kind": "piecewise", "rtt_ms": 60.0,  # steps through the 30 s stream
                "points": [[0.0, 3.0], [5.0, 0.8], [10.0, 6.0], [15.0, 1.5], [20.0, 4.0], [25.0, 0.5]]}
-CPU_CHECK_EVERY = 40  # the host CPU re-runs every 40th full-width point: 25 a policy
+CPU_CHECK_EVERY = 100  # the host CPU re-runs every 100th full-width point: 10 a policy
 CHUNK_POINTS, CHUNK_SIZE = 10_000, 2500  # max_utility at 24 frames, chunked against unchunked
 PROFILE_FRAMES = 300  # the profiled group's stream (eager rounds take ~20 ms each)
-REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 100 points
+REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 50 points
     10: {"bandwidth_mbps": [1.0, 3.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
-    100: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [24.0, 30.0]},
+    50: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [30.0]},
 }
 # Policies whose per-point loop runs at 10 points only: the jax_* planners take
 # 0.6-1.9 s a point on the card (phase 8).
@@ -508,7 +530,7 @@ ONLINE_SQUARE = {"kind": "piecewise", "points": [[0.0, 3.5], [1.0, 0.8]], "rtt_m
 ADAPT_FRAMES, ADAPT_LONG_FRAMES = 60, 900
 ADAPT_GRID = {"deadline_ms": [200.0, 208.0, 216.0, 224.0, 232.0],
               "rtt_ms": [50.0 + 60.0 * i / 200 for i in range(200)]}
-ONLINE_CPU_EVERY = 10
+ONLINE_CPU_EVERY = 20
 
 # The fleet phase: Session.run_sweep on fleet grids through the lane-batched
 # fleet engine (core/sim_multi_batch), held against the reference's numbers
@@ -537,7 +559,7 @@ FLEET_SMALL_GRID = {**FLEET_GRID, "bandwidth_mbps": [1.0, 2.5, 4.0, 6.0, 9.0, 12
 FLEET_WIDE = ("offload", "max_accuracy", "max_utility")  # 1008 points; the others at 216; each twice
 FLEET_WIDE_PARAMS = {"max_accuracy": {"grid": 10e-3}, "max_utility": {"alpha": 150.0}}  # the bench's grid
 FLEET_BASE = {"trace": {"kind": "constant", "mbps": 6.0}, "fleet": {"n_clients": 2, "capacity": 4}}
-FLEET_SAMPLE_EVERY = 50  # every 50th full-width point against the loop and the host CPU
+FLEET_SAMPLE_EVERY = 100  # every 100th full-width point against the loop and the host CPU
 
 # The mesh phase: MESH_RANKS ranks of the port, each its own spawned process
 # on cuda:{rank % device_count} (all of them on the one card here), joined
@@ -550,11 +572,12 @@ FLEET_SAMPLE_EVERY = 50  # every 50th full-width point against the loop and the 
 # on the card; the results must equal the earlier phases' one-rank results
 # (ONE_RANK) and the goldens.  Then (e) the LMs' serving steps under
 # serve_rules on the ranks (MESH_MODELS), held against the same steps run
-# by the parent on one rank just before.  The ranks must end within
+# by the parent on one rank just before, and (f) the diffusion and
+# classifier serving steps likewise (MESH_SERVE).  The ranks must end within
 # MESH_TIMEOUT.
 MESH_RANKS = 4
-MESH_TIMEOUT = 210  # seconds for the ranks, start to end: the phase's budget
-MESH_PARTS = ("sweeps", "models")  # (a)-(d) and (e); a rehearsal runs one
+MESH_TIMEOUT = 270  # seconds for the ranks, start to end: the phase's budget, 60 of them for (f)
+MESH_PARTS = ("sweeps", "models", "serve")  # (a)-(d), (e) and (f); a rehearsal runs one
 MESH_ONLINE = "max_utility/lattice"
 MESH_FLEET = "max_accuracy/planner"
 MESH_LARGE = "max_utility"
@@ -571,7 +594,29 @@ MESH_MODELS = (("qwen3-0.6b", None, (2, 2), LM_DECODE_STEPS, LM_DECODE_LEN // 2 
 MESH_TIMED = 4  # decode steps timed after the checked ones (a prefill: one, after the checked one)
 MESH_CONTROL_STEPS = 2  # LM_CONTROL's decode steps that leave the slots of a rank out of the merge
 MESH_SMOKE = False  # the SMOKE configs (a rehearsal on the CPU)
-MESH_REPORT: dict = {}  # (e)'s one-rank results and the ranks' outputs, kept for a rehearsal's checks
+MESH_REPORT: dict = {}  # (e)'s and (f)'s one-rank results and the ranks' outputs, kept for a rehearsal's checks
+# (f): (config, shape, (data, model) mesh, batch, image side (None: the
+# shape's), Flux's (double, single) depth (None: whole)).  Every model at full
+# width, seed-SEED bf16 weights with the zero-init leaves drawn
+# (draw_zero_leaves) and the attention matrices at their own fan-in
+# (own_fan_in).  Cuts, fixed before (f)'s first run: the batches (gen_fast's
+# 16 -> 2, serve_b128's 128 -> 8); Flux-dev's 19 + 38 blocks -> 2 + 2, as
+# train_full cuts it.  EfficientNet-B7 at serve_b1 keeps its batch of 1,
+# whole on ``data``.
+MESH_SERVE = (("dit-xl2", "gen_fast", (2, 2), 2, None, None),
+              ("flux-dev", "gen_fast", (1, 4), 2, None, (2, 2)),
+              ("vit-s16", "serve_b128", (2, 2), 8, None, None),
+              ("swin-b", "serve_b128", (1, 4), 8, None, None),
+              ("resnet-50", "serve_b128", (1, 4), 8, None, None),
+              ("efficientnet-b7", "serve_b1", (2, 2), 1, None, None))
+# A classifier's logits put together from the ranks, max|difference| over
+# max|logit| of one rank's run of the same step (its attention the plain
+# one on f32-upcast q, k, v).  Fixed before (f)'s first run: above the sound
+# bf16 distances seen so far (the LMs' 1.1-2.6%, ViT-S/16's kernel against
+# the plain attention under VIT_LOGIT_RTOL's 2%), and far below a conv whose
+# output channels on one rank are lost (a quarter or half of the stem's
+# features: tens of percent).  PERF.md §6.
+CLASSIFY_RTOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -3072,25 +3117,31 @@ def laid(t) -> tuple:
 
 def assemble(torch, parts: list):
     """The global tensor from the ``laid`` parts of every rank; every
-    element must be covered."""
+    element must be covered, and ranks that hold the same elements (a
+    replicated dim) must hold the same values, as they compute alike."""
     shape = [max(w[d][1] for _, w in parts) for d in range(len(parts[0][1]))]
     full, covered = torch.zeros(shape), torch.zeros(shape, dtype=torch.bool)
     for local, where in parts:
         at = tuple(slice(a, b) for a, b in where)
+        held = covered[at]
+        check(torch.equal(full[at][held], local[held]), f"mesh: two ranks' copies of a {shape} output differ")
         full[at], covered[at] = local, True
-    check(bool(covered.all()), f"mesh (e): the ranks' shards do not cover a {shape} output")
+    check(bool(covered.all()), f"mesh: the ranks' shards do not cover a {shape} output")
     return full
 
 
 @contextlib.contextmanager
-def leave_out_partial(L, torch, where: str, coord: int):
-    """While active, the sums and maxima over ranks inside ``layers.<where>``
-    leave out the partials of the rank at coordinate ``coord`` of their
-    axes' last mesh axis (zeros to a sum, -1e30 to a max).  A wrong path:
-    in ``attention``, one rank's heads missing from every attention output;
-    in ``_sdpa_split``, one rank's (m, l, acc) missing from the merge of a
-    decode's cache slots."""
-    real = getattr(L, where)
+def leave_out_partial(L, torch, where: str, coord: int, module=None):
+    """While active, the sums and maxima over ranks inside ``<module>.<where>``
+    (``module`` default ``layers``) leave out the partials of the rank at
+    coordinate ``coord`` of their axes' last mesh axis (zeros to a sum,
+    -1e30 to a max).  A wrong path: in ``attention``, one rank's heads
+    missing from every attention output; in ``_sdpa_split``, one rank's (m,
+    l, acc) missing from the merge of a decode's cache slots; in
+    ``diffusion._joint_attention``, one rank's heads missing from Flux's
+    joint attention; in ``vision._window_attention``, from Swin's."""
+    module = L if module is None else module
+    real = getattr(module, where)
 
     def dropping(collective, fill):
         def dropped(x, mesh, axes):
@@ -3105,7 +3156,27 @@ def leave_out_partial(L, torch, where: str, coord: int):
                 mock.patch.object(L, "all_max", dropping(L.all_max, L.NEG_INF)):
             return real(*args, **kw)
 
-    with mock.patch.object(L, where, wrong):
+    with mock.patch.object(module, where, wrong):
+        yield
+
+
+@contextlib.contextmanager
+def lost_channels(convnets, torch, coord: int):
+    """While active, the first gather of a channel-split activation in
+    ``models.convnets`` (the stem conv's output) takes zeros for the
+    channels of the rank at coordinate ``coord`` of the gather's last mesh
+    axis: a wrong path, one rank's output channels of a conv lost before
+    the gather."""
+    real, seen = convnets.all_gather, []
+
+    def gather(x, dim, mesh, axes):
+        if axes and not seen:
+            seen.append(axes)
+            if mesh.get_coordinate()[mesh.mesh_dim_names.index(axes[-1])] == coord:
+                x = torch.zeros_like(x)
+        return real(x, dim, mesh, axes)
+
+    with mock.patch.object(convnets, "all_gather", gather):
         yield
 
 
@@ -3217,6 +3288,107 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
     return out
 
 
+def serve_arch(A, configs, case: tuple):
+    """(f)'s config of ``case``: its one shape at the case's batch (and
+    image side), Flux's depth cut where the case cuts it."""
+    name, shape_name, _, batch, img, depth = case
+    arch = configs.get(name, smoke=MESH_SMOKE)
+    cfg = arch.cfg if depth is None else dataclasses.replace(arch.cfg, n_double=depth[0], n_single=depth[1])
+    shape = dataclasses.replace(arch.shape(shape_name), batch=batch, img=img or arch.shape(shape_name).img)
+    return dataclasses.replace(arch, cfg=cfg, shapes=(shape,))
+
+
+def implied_prediction(torch, family: str, batch: dict, out):
+    """The network's prediction a denoise step's output ``out`` implies, in
+    f64 on the host: Flux's velocity ``(x - out) / dt``; DiT's eps channels
+    from ``out = (a2 / a_t) x + (s2 - a2 s_t / a_t) eps`` (the DDIM step of
+    ``diffusion.dit_sample_step``).  So (f) holds what DIFF_RTOL measures,
+    through the step a user calls."""
+    x, t, dt = (batch[k].double().cpu() for k in ("x", "t", "dt"))
+    out = out.double().cpu()
+    if family == "flux":
+        return (x - out) / dt[:, None, None, None]
+    h = 0.5 * math.pi
+    a_t, s_t = torch.cos(h * t).clamp(min=1e-4), torch.sin(h * t)
+    t2 = (t - dt).clamp(min=0.0)
+    a2, s2 = torch.cos(h * t2), torch.sin(h * t2)
+    return (out - (a2 / a_t)[:, None, None, None] * x) / (s2 - a2 * s_t / a_t)[:, None, None, None]
+
+
+def serve_steps(torch, case: tuple, rules=None) -> dict:
+    """(f) for one MESH_SERVE ``case`` in this process: on one rank
+    (``rules`` None, the parent) or on the ranks of ``rules``' mesh.  The
+    step of ``serve_arch`` through ``build_cell(..., rules=rules)``; its
+    weights drawn whole from the seed on every rank (zero-init leaves
+    drawn, attention matrices at their own fan-in), then, over ranks, each
+    rank's slices kept (``interop.place``); the inputs from the seed.  One
+    rank is the reference: its step attends by the plain attention on
+    f32-upcast q, k, v, and a classifier's runs again with the model
+    modules in f32 (a sound distance, a reading).  Then a step timed (on
+    one rank, as the port runs it); on the ranks, the control: a rank's
+    attention partial left out of a row-parallel sum (DiT's and ViT's
+    attention, Flux's joint attention, Swin's window attention), or a
+    rank's stem channels lost before their gather (the convnets).  Returns
+    the outputs (``laid``), flash launches in the checked step, collectives
+    a step (``rules.COLLECTIVES``), ms and peak GB."""
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import common, convnets, diffusion, vision
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import rules as R
+
+    arch = serve_arch(A, configs, case)
+    family, cfg, shape = arch.family, arch.cfg, arch.shapes[0]
+    cell = steps.build_cell(arch, shape.name, rules=rules)
+    whole = steps.build_cell(arch, shape.name)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    weights = [whole.init_arg(i, SEED, DEVICE) for i in range(len(whole.arg_specs) - 1)]
+    if family in ("dit", "flux"):
+        draw_zero_leaves(common, weights[0], whole.arg_specs[0], torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    if family in ("dit", "flux", "vit", "swin"):
+        own_fan_in(weights[0], cfg)
+    batch = A.make_inputs(arch, shape, SEED, device=DEVICE)
+    args = (*weights, batch)
+    if rules is not None:
+        args = tuple(interop.place(a, s, rules, device=DEVICE) for a, s in zip(args, cell.arg_specs))
+    del weights
+    count = lambda: sum(R.COLLECTIVES.values())  # noqa: E731
+
+    def plain_attention(q, k, v, *, causal=True, **_):
+        return upcast_attention(torch, flash_ref, q, k, v, causal=causal)
+
+    c0, launches0 = count(), flash_ops.flash_attention.launches
+    if rules is None:  # the reference: the plain attention on f32-upcast q, k, v
+        with mock.patch.object(flash_ops, "attention", plain_attention):
+            y = cell(*args)
+            out = {"out": laid(y), "batch": {k: v.cpu() for k, v in batch.items()}}
+            if family not in ("dit", "flux"):
+                with in_f32(torch, (diffusion, vision, convnets)):
+                    out["f32"] = laid(cell(*args))
+    else:
+        out = {"out": laid(cell(*args))}
+    launches, collectives = flash_ops.flash_attention.launches - launches0, count() - c0
+    _, s = timed(torch, lambda: cell(*args))
+    partial = {"dit": ("attention", L), "vit": ("attention", L), "flux": ("_joint_attention", diffusion),
+               "swin": ("_window_attention", vision)}.get(family)
+    if rules is not None and partial is not None:
+        where, module = partial
+        with leave_out_partial(L, torch, where, 1, module):
+            out["control"] = laid(cell(*args))
+    if rules is not None and family in ("resnet", "effnet"):
+        with lost_channels(convnets, torch, 1):
+            out["control"] = laid(cell(*args))
+    flash = attention_layers(cfg) if family in ("dit", "flux") else cfg.n_layers if family == "vit" else 0
+    out.update(family=family, launches=launches, collectives=collectives, ms=s * 1e3, flash_per_step=flash,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0)
+    return out
+
+
 def mesh_rank(rank: int, world: int, workdir: str, settings: dict) -> None:
     """One rank of the mesh phase, in a spawned process: takes the parent's
     ``settings`` (this module's constants, which a rehearsal on the CPU
@@ -3267,6 +3439,18 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
                                       "seconds": time.perf_counter() - t}
         out["models_launches"] = [ops.int8_matmul.launches, flash_ops.flash_attention.launches]
         torch.save(tensors, workdir / f"rank{rank}_models.pt")
+    if "serve" in MESH_PARTS:
+        ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+        out["serve"], tensors = {}, {}
+        for case in MESH_SERVE:
+            mesh = make_host_mesh(*case[2], device=DEVICE)
+            t = time.perf_counter()
+            r = serve_steps(torch, case, MeshRules(mesh, serve_rules(mesh)))
+            tensors[case[0]] = {k: r.pop(k) for k in ("out", "control") if k in r}
+            out["serve"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
+                                     "seconds": time.perf_counter() - t}
+        out["serve_launches"] = [ops.int8_matmul.launches, flash_ops.flash_attention.launches]
+        torch.save(tensors, workdir / f"rank{rank}_serve.pt")
     return out
 
 
@@ -3431,6 +3615,51 @@ def check_models(torch, ranks: list, one: dict, tensors: list) -> dict:
     return report
 
 
+def check_serve(torch, ranks: list, one: dict, tensors: list) -> dict:
+    """(f)'s verdict: per MESH_SERVE case, every rank launched the flash
+    kernel once an attention layer in the checked step (on the card; DiT's
+    28, Flux's 4 at 2 + 2 blocks, ViT's 12, none for Swin and the convnets)
+    and the int8 kernel never; the ranks' coordinates cover the mesh; the
+    output put together from the ranks' shards is finite and of one rank's
+    shape, and lies within its limit of one rank's run (``one``; its
+    attention the plain one on f32-upcast q, k, v): a diffusion step's
+    implied prediction (``implied_prediction``) within DIFF_RTOL, a
+    classifier's logits within CLASSIFY_RTOL; each model's control (a
+    rank's attention partial left out, a rank's stem channels lost) lies
+    beyond its limit.  ``tensors``: each rank's ``rank{r}_serve.pt``.
+    Returns the report per case."""
+    report = {}
+    for name, _, (data, model), *_ in MESH_SERVE:
+        ref, rows = one[name], [r["serve"][name] for r in ranks]
+        want = ref["flash_per_step"] if DEVICE == "cuda" else 0  # CPU calls take the plain version: no launch
+        check(all(m["launches"] == want for m in rows),
+              f"mesh (f): {name}: flash launches a step per rank {[m['launches'] for m in rows]}, want {want}")
+        check(all(r["serve_launches"][0] == 0 for r in ranks), f"mesh (f): {name}: a rank launched the int8 kernel")
+        check(sorted(tuple(m["coord"]) for m in rows) == [(i, j) for i in range(data) for j in range(model)],
+              f"mesh (f): {name}: the ranks do not cover the ({data}, {model}) mesh")
+        got, one_out = assemble(torch, [t[name]["out"] for t in tensors]), ref["out"][0]
+        check(tuple(got.shape) == tuple(one_out.shape) and bool(torch.isfinite(got).all()),
+              f"mesh (f): {name}: the ranks' output is malformed: {tuple(got.shape)}")
+        family = ref["family"]
+        if family in ("dit", "flux"):
+            limit, what = DIFF_RTOL, "prediction"
+            value = lambda out: implied_prediction(torch, family, ref["batch"], out)  # noqa: E731
+        else:
+            limit, what = CLASSIFY_RTOL, "logits"
+            value = lambda out: out  # noqa: E731
+        agree = distance(value(got), value(one_out))
+        row = report[name] = {"agree": agree, "what": what, "limit": limit, "one": ref, "ranks": rows}
+        if "f32" in ref:
+            row["f32"] = distance(one_out, ref["f32"][0])["rel"]
+        check(agree["rel"] <= limit, f"mesh (f): {name}'s {what} on the ranks differs from one rank's: "
+              f"{agree['rel']:.4%} of max|{what}| {agree['scale']:.4g} (limit {limit:.2%})")
+        control = row["control"] = distance(value(assemble(torch, [t[name]["control"] for t in tensors])),
+                                              value(one_out))["rel"]
+        check(control > limit, f"mesh (f): {name}'s control lies within the limit ({control:.4%}): "
+              "the check cannot fail")
+    return report
+
+
 def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> list:
     """MESH_RANKS spawned ranks of the port share the card (see MESH_RANKS):
     every rank's results must equal the goldens and the earlier phases'
@@ -3460,8 +3689,9 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
         one, one_s = {}, time.perf_counter()
         if "models" in MESH_PARTS:  # (e) on one rank first: the reference, and the MoE picks to replay
             one = {case[0]: model_steps(torch, case, Path(workdir)) for case in MESH_MODELS}
-            if DEVICE == "cuda":
-                torch.cuda.empty_cache()
+        one_serve = {case[0]: serve_steps(torch, case) for case in MESH_SERVE} if "serve" in MESH_PARTS else {}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
         one_s = time.perf_counter() - one_s
         ctx = multiprocessing.get_context("spawn")
         settings = {k: v for k, v in globals().items() if k.isupper() and k not in ("ONE_RANK", "MESH_REPORT")}
@@ -3484,11 +3714,15 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
         check(codes == [0] * MESH_RANKS, f"mesh: the ranks exited {codes}")
         ranks = [json.loads((Path(workdir) / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
         check_ranks(torch, core, ranks)
-        models = {}
+        models, serve = {}, {}
         if "models" in MESH_PARTS:
             tensors = [torch.load(Path(workdir) / f"rank{r}_models.pt") for r in range(MESH_RANKS)]
             MESH_REPORT.update(one=one, tensors=tensors, ranks=ranks)
             models = check_models(torch, ranks, one, tensors)
+        if "serve" in MESH_PARTS:
+            tensors = [torch.load(Path(workdir) / f"rank{r}_serve.pt") for r in range(MESH_RANKS)]
+            MESH_REPORT.update(serve_one=one_serve, serve_tensors=tensors, ranks=ranks)
+            serve = check_serve(torch, ranks, one_serve, tensors)
 
     if "sweeps" in MESH_PARTS:
         large_rows, s1 = ONE_RANK["large"]
@@ -3522,7 +3756,21 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
             f"step {rows[0]['collectives']['decode']:g} (through sharding.rules, host-staged on the card); peak GB "
             f"per rank {[round(r['peak_gb'], 2) for r in rows]} (one rank {one_m['peak_gb']:.2f}); "
             f"{max(r['seconds'] for r in rows):.1f} s on the ranks")
-    log(f"mesh: one-rank (e) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
+    for (name, shape, (data, model), batch, _, depth), m in zip(MESH_SERVE, serve.values()):
+        one_m, rows, a, what = m["one"], m["ranks"], m["agree"], m["what"]
+        control = ("a rank's stem channels lost" if one_m["family"] in ("resnet", "effnet")
+                   else "a rank's attention partial left out")
+        log(f"mesh (f): {name} {shape} at batch {batch}" + ("" if depth is None else f", {depth[0]} + {depth[1]} "
+            "blocks") + f" on a ({data}, {model}) mesh of {MESH_RANKS} ranks sharing the card ({smi}): {what} "
+            f"against one rank's {a['rel']:.4%} of max|{what}| {a['scale']:.4g} (limit {m['limit']:.2%}); "
+            f"control ({control}) {m['control']:.4%}"
+            + (f"; one rank's bf16 logits against its f32 (a reading) {m['f32']:.4%}" if "f32" in m else "")
+            + f"; ms a step {max(r['ms'] for r in rows):.2f} on {MESH_RANKS} ranks (slowest, host clock) against "
+            f"{one_m['ms']:.2f} on one; flash launches a step per rank {[r['launches'] for r in rows]}; collectives "
+            f"a step {rows[0]['collectives']} (through sharding.rules, host-staged on the card); peak GB per rank "
+            f"{[round(r['peak_gb'], 2) for r in rows]} (one rank {one_m['peak_gb']:.2f}); "
+            f"{max(r['seconds'] for r in rows):.1f} s on the ranks")
+    log(f"mesh: one-rank (e) and (f) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return ranks
 
@@ -4432,15 +4680,17 @@ def main() -> int:
         launches = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
         log(f"{name}: kernel launches (int8_matmul, flash_attention) {launches}")
         check(launches == (0, 0), f"the {name} phase launched a model kernel")
-    # The mesh phase's (e) runs LM steps: flash launches in this process (the
-    # one-rank runs) and in each rank (check_models holds them a layer each).
+    # The mesh phase's (e) and (f) run model steps: flash launches in this
+    # process (the one-rank runs) and in each rank (check_models and
+    # check_serve hold them an attention layer each).
     torch.cuda.empty_cache()
     ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
     mesh_ranks = phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
     mesh_one = flash_ops.flash_attention.launches
-    mesh_rank_flash = [r["models_launches"][1] for r in mesh_ranks]
+    mesh_rank_flash = [r["models_launches"][1] + r["serve_launches"][1] for r in mesh_ranks]
     log(f"mesh: kernel launches (int8_matmul, flash_attention) ({ops.int8_matmul.launches}, {mesh_one}) here (the "
-        f"one-rank (e)), flash {mesh_rank_flash} on the ranks in (e), 0 in (a)-(d)")
+        f"one-rank (e) and (f)), flash {mesh_rank_flash} on the ranks: {[r['models_launches'][1] for r in mesh_ranks]} "
+        f"in (e), {[r['serve_launches'][1] for r in mesh_ranks]} in (f), 0 in (a)-(d)")
     check(ops.int8_matmul.launches == 0, "the mesh phase launched the int8 kernel")
     wall = time.perf_counter() - t0
 
@@ -4480,6 +4730,8 @@ def main() -> int:
     # flash at every lm_full and diffusion_full shape, from phase 3 (launches a step where a step has several)
     main_flash = {s: ("LM prefill", None) for s in lm_flash_shapes(A, configs)}
     main_flash |= {s: ("diffusion", attention_layers(configs.get(m).cfg)) for s, m in DIFF_FLASH_SHAPES.items()}
+    main_flash |= {s: (f"{m} (a rank's heads in the mesh phase's (f))", None)
+                   for s, m in MESH_FLASH_SHAPES.items()}
     check(DIFF_FLASH_SHAPES.keys() <= attns, f"DIFF_FLASH_SHAPES not run by diffusion_full: "
           f"{sorted(DIFF_FLASH_SHAPES.keys() - attns)}")
     check(main_flash.keys() <= flash_rows.keys(), f"lm_full / diffusion_full shapes not timed in the flash phase: "

@@ -9,24 +9,28 @@ from __future__ import annotations
 import torch
 
 
+def _quantize(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one scale per slice along ``dim``
+    (reduced over): scale = max|x| / 127 (1 where the slice is all zero),
+    q = clamp(round(x / scale), -127, 127) in f32.  ``torch.round`` rounds
+    half to even, like ``jnp.round``.  Eight launches on the card: the max
+    is taken in f32 without a cast of ``x``, and the division promotes
+    ``x`` to f32 itself."""
+    amax = torch.linalg.vector_norm(x, float("inf"), dim=dim, dtype=torch.float32)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = (x / scale.unsqueeze(dim)).round_().clamp_(-127, 127).to(torch.int8)
+    return q.contiguous(), scale
+
+
 def quantize_rowwise(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization of activations [M, K].
-    Returns (q [M,K] int8, scale [M] f32).  ``torch.round`` rounds half to
-    even, like ``jnp.round``."""
-    x32 = x.to(torch.float32)
-    amax = x32.abs().amax(dim=1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127).to(torch.int8)
-    return q.contiguous(), scale
+    Returns (q [M,K] int8, scale [M] f32)."""
+    return _quantize(x, 1)
 
 
 def quantize_colwise(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of weights [K, N]."""
-    w32 = w.to(torch.float32)
-    amax = w32.abs().amax(dim=0)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127).to(torch.int8)
-    return q.contiguous(), scale
+    return _quantize(w, 0)
 
 
 def int8_matmul_ref(

@@ -29,13 +29,13 @@ A ``denoise_step`` cell runs one sampler step of DiT (DDIM, cosine
 schedule) or Flux (rectified-flow Euler) on ``{"x", "t", "dt", ...}``.
 
 With ``rules`` (a ``MeshRules`` over a mesh of ``torch.distributed`` ranks)
-the LM's ``prefill`` and ``decode`` run on every rank under
-``activation_rules``, as the reference's ``_with_rules``:
-``prog.shardings()`` gives each argument leaf's spec, ``prog.init_args``
-each rank's slices as DTensors (a leaf drawn whole, its slice kept), and
-the step returns DTensors (logits on ``vocab``, the cache on its
-``kv_seq_axis``).  Every other kind under rules raises, naming its
-ROADMAP entry.
+the serving kinds (the LM's ``prefill`` and ``decode``, ``denoise_step``,
+``classify_serve``) run on every rank under ``activation_rules``, as the
+reference's ``_with_rules``: ``prog.shardings()`` gives each argument
+leaf's spec, ``prog.init_args`` each rank's slices as DTensors (a leaf
+drawn whole, its slice kept), and the step returns DTensors (logits on
+``vocab``, the cache on its ``kv_seq_axis``, next latents on the batch).
+The training kinds under rules raise, naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -136,8 +136,7 @@ def _with_rules(rules: MeshRules | None, fn: Callable) -> Callable:
 
 
 # The ROADMAP entry (§1, "Still to port") that each kind waits for under rules.
-RULES_ENTRY = {"denoise_step": "item 8.2", "classify_serve": "item 8.2", "train": "item 8.3",
-               "denoise_train": "item 8.3", "classify_train": "item 8.3"}
+RULES_ENTRY = {"train": "item 8.3", "denoise_train": "item 8.3", "classify_train": "item 8.3"}
 
 
 def _loss_fn(arch: A.Arch, kind: str) -> Callable:
@@ -283,7 +282,8 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
                 return diffusion.flux_sample_step(cfg, params, batch["x"], batch["txt"], batch["vec"], batch["t"],
                                                   batch["dt"], batch["guidance"])
 
-        return CellProgram(name, shape.kind, step_fn, (serve_params, in_specs), meta=meta)
+        return CellProgram(name, shape.kind, _with_rules(rules, step_fn), (serve_params, in_specs), meta=meta,
+                           rules=rules)
 
     if shape.kind == "classify_serve":
         serve_state = _cast_specs(state_specs, torch.float32)
@@ -292,6 +292,7 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
             with torch.no_grad():
                 return A.classifier_forward(arch, params, state, batch["images"], train=False)[0]
 
-        return CellProgram(name, shape.kind, serve_fn, (serve_params, serve_state, in_specs), meta=meta)
+        return CellProgram(name, shape.kind, _with_rules(rules, serve_fn), (serve_params, serve_state, in_specs),
+                           meta=meta, rules=rules)
 
     raise ValueError(f"unhandled kind {shape.kind}")

@@ -16,7 +16,8 @@ import dataclasses
 import functools
 import math
 import sys
-from typing import Any, Callable, Iterable
+import weakref
+from typing import Any, Callable, Hashable, Iterable
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -260,6 +261,12 @@ def on_mesh(y: torch.Tensor, mesh: Any, dims: dict[int, tuple[str, ...]]) -> tor
     return _from_local(y, mesh, placements)
 
 
+def rows_like(ref: Any, y: torch.Tensor) -> torch.Tensor:
+    """The local tensor ``y`` laid out on dim 0 (the batch) as DTensor
+    ``ref``, its other dims whole; ``y`` itself where ``ref`` is plain."""
+    return on_mesh(y, mesh_of(ref), {0: local_slice(ref, 0)[1]})
+
+
 def like(ref: Any, y: torch.Tensor, placements=None) -> torch.Tensor:
     """The local tensor ``y`` laid out as DTensor ``ref`` (or with
     ``placements`` on its mesh); ``y`` itself where ``ref`` is plain."""
@@ -288,13 +295,16 @@ _ACTIVE_MATMUL: list[Any] = []
 
 class matmul_backend:
     """Context manager installing fn(x2d [M, K], w2d [K, N]) -> [M, N] for
-    every matmul() call."""
+    every matmul() call, ``w2d`` cast to the activation dtype.  Where
+    ``weights`` is given, fn gets ``weights(w2d, dtype)`` in its place, with
+    ``w2d`` as the model holds it (a view of its weight leaf), so that the
+    backend can keep what it derives from a leaf across calls."""
 
-    def __init__(self, fn: Any):
-        self.fn = fn
+    def __init__(self, fn: Any, weights: Any = None):
+        self.fn, self.weights = fn, weights
 
     def __enter__(self):
-        _ACTIVE_MATMUL.append(self.fn)
+        _ACTIVE_MATMUL.append((self.fn, self.weights))
         return self.fn
 
     def __exit__(self, *exc):
@@ -302,15 +312,59 @@ class matmul_backend:
 
 
 def current_matmul():
-    return _ACTIVE_MATMUL[-1] if _ACTIVE_MATMUL else None
+    return _ACTIVE_MATMUL[-1][0] if _ACTIVE_MATMUL else None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[..., K] x [K, N] through the active backend (plain ``@`` if none).
-    The backend's output is cast back to the activation dtype."""
+    """[..., K] x [K, N] through the active backend (plain ``@`` if none),
+    ``w`` cast to the activation dtype.  The backend's output is cast back
+    to the activation dtype."""
     if not _ACTIVE_MATMUL:
-        return x @ w
-    fn = _ACTIVE_MATMUL[-1]
+        return x @ w.to(x.dtype)
+    fn, weights = _ACTIVE_MATMUL[-1]
     lead = x.shape[:-1]
-    out = fn(x.reshape(-1, x.shape[-1]), w)
+    out = fn(x.reshape(-1, x.shape[-1]), w.to(x.dtype) if weights is None else weights(w, x.dtype))
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tensors derived from leaves, kept across calls.  An inference forward
+# derives the same tensors from its leaves at every call (a weight's cast,
+# BatchNorm's scale, an NPU weight's int8 values); ``kept`` computes each at
+# its first call and gives it back while the leaves it reads live and are
+# not written, so a forward issues fewer operations from the host.
+# ---------------------------------------------------------------------------
+
+KEPT: dict[tuple, tuple[tuple[int, ...], Any]] = {}  # key -> (the roots' versions, fn's result)
+
+
+def kept(tag: Hashable, fn: Callable[..., Any], *leaves: torch.Tensor) -> Any:
+    """``fn(*leaves)``, computed once for these leaves and then kept.  A
+    leaf is known by its root tensor (``t._base``, else ``t``) and its place
+    in it; an entry holds the roots' version counters, so a write to a leaf
+    (an in-place op; a ``.data`` swap is not seen) computes it anew, and it
+    goes when a root is freed, before that memory can be reused.  ``tag``
+    names ``fn`` and its constants.  Where a leaf takes part in autograd, is
+    an inference tensor (no version counter) or lies on ``meta`` (no values;
+    a traced step, as the dry run's, counts every operation), ``fn`` runs at
+    every call.  What ``fn`` returns must hold no leaf, not even as a view,
+    or the leaf would never be freed."""
+    if any(t.is_meta or t.is_inference() or (t.requires_grad and torch.is_grad_enabled()) for t in leaves):
+        return fn(*leaves)
+    roots = tuple(t if t._base is None else t._base for t in leaves)
+    key = (tag, *((id(r), t.dtype, t.storage_offset(), t.shape, t.stride()) for r, t in zip(roots, leaves)))
+    versions = tuple(r._version for r in roots)
+    entry = KEPT.get(key)
+    if entry is not None and entry[0] == versions:
+        return entry[1]
+    got = fn(*leaves)
+    if entry is None:
+        for r in {id(r): r for r in roots}.values():
+            weakref.finalize(r, KEPT.pop, key, None)
+    KEPT[key] = (versions, got)
+    return got
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``; a cast to another dtype is ``kept``."""
+    return t if t.dtype == dtype else kept(("cast", dtype), lambda u: u.to(dtype), t)

@@ -17,6 +17,20 @@ pads explicitly with ``F.pad`` and then runs unpadded.
 Under an active matmul backend every conv with ``groups == 1`` lowers to one
 GEMM (``_conv_via_matmul``); a depthwise conv stays a plain grouped conv in
 both variants, as in the reference.
+
+Under mesh rules (``launch/steps.build_cell(..., rules=)``, a
+``classify_serve`` step over ``torch.distributed`` ranks) the images and
+weights are DTensors and each rank computes on its local shards: the batch
+on ``data``; each conv on the rank's output channels (``conv_out`` on
+``model``: dim 0 of an OIHW leaf) over its whole input channels
+(``conv_in`` is None), BatchNorm and the SE biases on the leaves' slices
+of those channels, a depthwise conv on the rank's own channels; an
+activation split on channels is gathered (``rules.all_gather``) where a
+conv reads it whole.  A leaf whose width the ``model`` extent does not
+divide stays whole, and the activations follow each leaf as it resolves
+(``_laid``).  The logits come back split over ``vocab``.  Only inference
+runs over ranks: a training forward there would need BatchNorm's
+statistics over the whole batch (ROADMAP item 8.3).
 """
 from __future__ import annotations
 
@@ -26,7 +40,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import current_matmul, matmul, shard, spec, stack_specs, unstack_tree
+from ..sharding.rules import all_gather
+from .common import (cast, current_matmul, kept, local, local_slice, matmul, mesh_of, on_mesh, rows_like, shard,
+                     spec, stack_specs, tree_map, unstack_tree)
 
 BN_MOMENTUM = 0.9
 
@@ -56,7 +72,7 @@ def conv(w: torch.Tensor, x: torch.Tensor, stride: int = 1, groups: int = 1) -> 
     if current_matmul() is not None and groups == 1:
         return _conv_via_matmul(w, x, stride)
     kh, kw = w.shape[2:]
-    return F.conv2d(_pad_same(x, kh, kw, stride), w.to(x.dtype), stride=stride, groups=groups)
+    return F.conv2d(_pad_same(x, kh, kw, stride), cast(w, x.dtype), stride=stride, groups=groups)
 
 
 def _conv_via_matmul(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -66,7 +82,6 @@ def _conv_via_matmul(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Ten
     (cin, kh, kw) with Cin slowest, the reference's patch order; the stride-2
     1x1 projection takes the patches branch, as in the reference."""
     cout, cin, kh, kw = w.shape
-    w = w.to(x.dtype)
     B = x.shape[0]
     if (kh, kw) == (1, 1) and stride == 1:  # pointwise: a matmul over channels
         H, W = x.shape[2:]
@@ -77,7 +92,7 @@ def _conv_via_matmul(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Ten
         W = (xp.shape[3] - kw) // stride + 1
         cols = F.unfold(xp, (kh, kw), stride=stride)  # [B, Cin*KH*KW, H'*W']
         rows = cols.transpose(1, 2).reshape(-1, cin * kh * kw)
-    out = matmul(rows, w.reshape(cout, -1).t())
+    out = matmul(rows, w.reshape(cout, -1).t())  # matmul casts w to x's dtype
     return out.reshape(B, H, W, cout).permute(0, 3, 1, 2)
 
 
@@ -96,7 +111,8 @@ def bn_state_specs(ch):
 
 
 def batchnorm(p, s, x, train: bool, eps=1e-5):
-    """Returns (y, new_state); statistics over (batch, H, W) in f32."""
+    """Returns (y, new_state); statistics over (batch, H, W) in f32.  In
+    eval the terms drawn from the leaves are ``kept``."""
     x32 = x.to(torch.float32)
     if train:
         mean = x32.mean(dim=(0, 2, 3))
@@ -106,12 +122,21 @@ def batchnorm(p, s, x, train: bool, eps=1e-5):
                 "mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean,
                 "var": BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * var,
             }
+        shift, inv, bias = _bn_terms(p["scale"], p["bias"], mean, var, eps)
     else:
-        mean, var = s["mean"], s["var"]
         new_s = s
-    inv = torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
-    y = (x32 - mean[:, None, None]) * inv[:, None, None] + p["bias"].to(torch.float32)[:, None, None]
+        shift, inv, bias = kept(("bn", eps), lambda *t: _bn_terms(*t, eps, copy=True),
+                                p["scale"], p["bias"], s["mean"], s["var"])
+    y = (x32 - shift) * inv + bias
     return y.to(x.dtype), new_s
+
+
+def _bn_terms(scale, bias, mean, var, eps, copy=False):
+    """BatchNorm's (shift, scale, bias) in f32 as [C, 1, 1], y = (x - shift)
+    * scale + bias; with ``copy`` none of them is a view of a leaf."""
+    inv = torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return (mean.to(torch.float32, copy=copy)[:, None, None], inv[:, None, None],
+            bias.to(torch.float32, copy=copy)[:, None, None])
 
 
 def maxpool(x, window=3, stride=2):
@@ -120,7 +145,85 @@ def maxpool(x, window=3, stride=2):
 
 def _bias(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A per-channel bias as it adds to NCHW ``x``."""
-    return b.to(x.dtype)[:, None, None]
+    return cast(b, x.dtype)[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# Channels over ranks.  A layout is (slice of the channels held, mesh axes
+# that split them, the DeviceMesh); ``()`` axes: the whole.  On one card
+# every layout is whole and these helpers are identities.
+# ---------------------------------------------------------------------------
+
+
+def _out(w) -> tuple:
+    """The layout of the output channels of OIHW conv weight ``w`` (dim 0)."""
+    return *local_slice(w, 0), mesh_of(w)
+
+
+def _whole(x: torch.Tensor) -> tuple:
+    return slice(0, x.shape[1]), (), None
+
+
+def _gathered(x: torch.Tensor, have) -> torch.Tensor:
+    """``x`` (layout ``have``) with its channels whole."""
+    return all_gather(x, 1, have[2], have[1])
+
+
+def _laid(x: torch.Tensor, have, want) -> torch.Tensor:
+    """NCHW ``x`` holding the channels of layout ``have``, as layout
+    ``want``: gathered over ``have``'s axes, then cut to ``want``'s slice."""
+    if have[:2] == want[:2]:
+        return x
+    x = _gathered(x, have)
+    return x[:, want[0]] if want[1] else x
+
+
+def _take(t, part) -> torch.Tensor:
+    """The local part of a per-channel leaf (replicated over ranks) at the
+    channels of layout ``part``."""
+    return local(t)[part[0]] if part[1] else local(t)
+
+
+def _bn(p, s, x, part, train):
+    """``batchnorm`` of ``x`` holding the channels of layout ``part``; on
+    one card (no mesh) the leaves as they are, with no walk of the trees."""
+    if part[2] is not None:
+        p, s = (tree_map(lambda t: _take(t, part), tree) for tree in (p, s))
+    return batchnorm(p, s, x, train)
+
+
+def _conv(w, x, stride: int = 1):
+    """(``conv`` of whole-channel ``x`` by the rank's output channels of
+    ``w``, their layout)."""
+    return conv(local(w), x, stride=stride), _out(w)
+
+
+def _conv_bias(p, x, stride: int = 1):
+    """``_conv`` by ``p["w"]`` plus ``p["b"]`` on the rank's output
+    channels."""
+    y, part = _conv(p["w"], x, stride)
+    return y + _bias(_take(p["b"], part), x), part
+
+
+def _inputs(images, train: bool) -> torch.Tensor:
+    """The local NCHW bf16 images."""
+    if train and mesh_of(images) is not None:
+        raise NotImplementedError("a training forward over ranks (BatchNorm over the whole batch): ROADMAP item 8.3")
+    return local(images).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def _stage_end(x: torch.Tensor, images) -> torch.Tensor:
+    """The reference's ``shard(x, "batch", None, None, None)`` at a stage's
+    end, channels whole, on the local NCHW ``x``."""
+    return local(shard(rows_like(images, x), "batch", None, None, None))
+
+
+def _logits(p, images, h) -> torch.Tensor:
+    """The head on pooled whole-channel features ``h``: f32 logits, over
+    ranks a DTensor of the rank's ``vocab`` columns."""
+    logits = matmul(h, local(p["w"])) + local(p["b"]).to(h.dtype)
+    return on_mesh(logits.to(torch.float32), mesh_of(images),
+                   {0: local_slice(images, 0)[1], 1: local_slice(p["w"], 1)[1]})
 
 
 # ---------------------------------------------------------------------------
@@ -181,17 +284,21 @@ def resnet_abstract(c: ResNetConfig) -> tuple[dict, dict]:
 
 
 def _bottleneck(p, s, x, stride, train):
+    """x (channels whole) -> (output, channels whole; new state)."""
     ns = {}
-    h, ns["bn1"] = batchnorm(p["bn1"], s["bn1"], conv(p["conv1"], x), train)
-    h = F.relu(h)
-    h, ns["bn2"] = batchnorm(p["bn2"], s["bn2"], conv(p["conv2"], h, stride=stride), train)
-    h = F.relu(h)
-    h, ns["bn3"] = batchnorm(p["bn3"], s["bn3"], conv(p["conv3"], h), train)
+    h, part = _conv(p["conv1"], x)
+    h, ns["bn1"] = _bn(p["bn1"], s["bn1"], h, part, train)
+    h, part = _conv(p["conv2"], _gathered(F.relu(h), part), stride)
+    h, ns["bn2"] = _bn(p["bn2"], s["bn2"], h, part, train)
+    h, part = _conv(p["conv3"], _gathered(F.relu(h), part))
+    h, ns["bn3"] = _bn(p["bn3"], s["bn3"], h, part, train)
     if "proj" in p:
-        sc, ns["bn_proj"] = batchnorm(p["bn_proj"], s["bn_proj"], conv(p["proj"], x, stride=stride), train)
+        sc, sc_part = _conv(p["proj"], x, stride)
+        sc, ns["bn_proj"] = _bn(p["bn_proj"], s["bn_proj"], sc, sc_part, train)
+        sc = _laid(sc, sc_part, part)
     else:
-        sc = x
-    return F.relu(h + sc), ns
+        sc = _laid(x, _whole(x), part)
+    return _gathered(F.relu(h + sc), part), ns
 
 
 def _restack(trees: list):
@@ -201,11 +308,11 @@ def _restack(trees: list):
 
 
 def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = False):
-    x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+    x = _inputs(images, train)
     ns: dict = {"stem": {}}
-    x = conv(params["stem"]["conv"], x, stride=2)
-    x, ns["stem"]["bn"] = batchnorm(params["stem"]["bn"], state["stem"]["bn"], x, train)
-    x = maxpool(F.relu(x))
+    x, part = _conv(params["stem"]["conv"], x, stride=2)
+    x, ns["stem"]["bn"] = _bn(params["stem"]["bn"], state["stem"]["bn"], x, part, train)
+    x = _gathered(maxpool(F.relu(x)), part)
     for i, depth in enumerate(c.depths):
         stride = 1 if i == 0 else 2
         x, ns[f"stage{i}_first"] = _bottleneck(
@@ -218,10 +325,8 @@ def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = Fals
                 x, s2 = _bottleneck(blk_p, blk_s, x, 1, train)
                 new_states.append(s2)
             ns[f"stage{i}_rest"] = _restack(new_states)
-        x = shard(x, "batch", None, None, None)
-    h = x.mean(dim=(2, 3))
-    logits = matmul(h, params["head"]["w"].to(h.dtype)) + params["head"]["b"].to(h.dtype)
-    return logits.to(torch.float32), ns
+        x = _stage_end(x, images)
+    return _logits(params["head"], images, x.mean(dim=(2, 3))), ns
 
 
 # ---------------------------------------------------------------------------
@@ -318,30 +423,37 @@ def effnet_abstract(c: EfficientNetConfig) -> tuple[dict, dict]:
 def _mbconv(p, s, x, stride, train):
     """expand -> BN -> SiLU -> depthwise -> BN -> SiLU -> squeeze-excite ->
     project -> BN, plus the input where stride is 1 and the widths match.
-    Each 1x1 SE conv acts on [B, C, 1, 1]: one M = B GEMM under a backend."""
+    Each 1x1 SE conv acts on [B, C, 1, 1]: one M = B GEMM under a backend.
+    Over ranks x comes and goes with its channels whole; the depthwise conv
+    runs on the rank's channels of the expansion (``dw``'s slice)."""
     ns: dict = {}
-    h = x
+    h, part = x, _whole(x)
     if "expand" in p:
-        h, ns["bn_e"] = batchnorm(p["bn_e"], s["bn_e"], conv(p["expand"], h), train)
+        h, part = _conv(p["expand"], h)
+        h, ns["bn_e"] = _bn(p["bn_e"], s["bn_e"], h, part, train)
         h = F.silu(h)
-    h, ns["bn_d"] = batchnorm(p["bn_d"], s["bn_d"], conv(p["dw"], h, stride=stride, groups=h.shape[1]), train)
+    dw = _out(p["dw"])
+    h = _laid(h, part, dw)
+    h = conv(local(p["dw"]), h, stride=stride, groups=h.shape[1])
+    h, ns["bn_d"] = _bn(p["bn_d"], s["bn_d"], h, dw, train)
     h = F.silu(h)
-    z = h.mean(dim=(2, 3), keepdim=True)  # squeeze-and-excitation
-    z = F.silu(conv(p["se_r"]["w"], z) + _bias(p["se_r"]["b"], z))
-    z = torch.sigmoid(conv(p["se_e"]["w"], z) + _bias(p["se_e"]["b"], z))
-    h = h * z
-    h, ns["bn_p"] = batchnorm(p["bn_p"], s["bn_p"], conv(p["project"], h), train)
-    if stride == 1 and x.shape[1] == h.shape[1]:
-        h = h + x
-    return h, ns
+    z = _gathered(h.mean(dim=(2, 3), keepdim=True), dw)  # squeeze-and-excitation
+    z, part = _conv_bias(p["se_r"], z)
+    z, part = _conv_bias(p["se_e"], _gathered(F.silu(z), part))
+    h = _gathered(h * _laid(torch.sigmoid(z), part, dw), dw)
+    h, part = _conv(p["project"], h)
+    h, ns["bn_p"] = _bn(p["bn_p"], s["bn_p"], h, part, train)
+    if stride == 1 and x.shape[1] == p["project"].shape[0]:
+        h = h + _laid(x, _whole(x), part)
+    return _gathered(h, part), ns
 
 
 def effnet_forward(c: EfficientNetConfig, params, state, images, *, train: bool = False):
-    x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+    x = _inputs(images, train)
     ns: dict = {"stem": {}, "head_conv": {}}
-    x = conv(params["stem"]["conv"], x, stride=2)
-    x, ns["stem"]["bn"] = batchnorm(params["stem"]["bn"], state["stem"]["bn"], x, train)
-    x = F.silu(x)
+    x, part = _conv(params["stem"]["conv"], x, stride=2)
+    x, ns["stem"]["bn"] = _bn(params["stem"]["bn"], state["stem"]["bn"], x, part, train)
+    x = _gathered(F.silu(x), part)
     for i, (_, _, reps, stride, _) in enumerate(c.stages()):
         x, ns[f"stage{i}_first"] = _mbconv(params[f"stage{i}_first"], state[f"stage{i}_first"], x, stride, train)
         if reps > 1:
@@ -351,12 +463,11 @@ def effnet_forward(c: EfficientNetConfig, params, state, images, *, train: bool 
                 x, s2 = _mbconv(blk_p, blk_s, x, 1, train)
                 new_states.append(s2)
             ns[f"stage{i}_rest"] = _restack(new_states)
-        x = shard(x, "batch", None, None, None)
-    x = conv(params["head_conv"]["conv"], x)
-    x, ns["head_conv"]["bn"] = batchnorm(params["head_conv"]["bn"], state["head_conv"]["bn"], x, train)
-    h = F.silu(x).mean(dim=(2, 3))
-    logits = matmul(h, params["head"]["w"].to(h.dtype)) + params["head"]["b"].to(h.dtype)
-    return logits.to(torch.float32), ns
+        x = _stage_end(x, images)
+    x, part = _conv(params["head_conv"]["conv"], x)
+    x, ns["head_conv"]["bn"] = _bn(params["head_conv"]["bn"], state["head_conv"]["bn"], x, part, train)
+    h = _gathered(F.silu(x).mean(dim=(2, 3)), part)
+    return _logits(params["head"], images, h), ns
 
 
 # ---------------------------------------------------------------------------
@@ -402,19 +513,20 @@ def squeezenet_abstract(c: SqueezeNetConfig) -> tuple[dict, dict]:
 
 
 def _fire(p, x):
-    s = F.relu(conv(p["squeeze"]["w"], x) + _bias(p["squeeze"]["b"], x))
-    e1 = conv(p["e1"]["w"], s) + _bias(p["e1"]["b"], x)
-    e3 = conv(p["e3"]["w"], s) + _bias(p["e3"]["b"], x)
+    s, part = _conv_bias(p["squeeze"], x)
+    s = _gathered(F.relu(s), part)
+    e1, e3 = (_gathered(*_conv_bias(p[k], s)) for k in ("e1", "e3"))
     return F.relu(torch.cat([e1, e3], dim=1))
 
 
 def squeezenet_forward(c: SqueezeNetConfig, params, state, images, *, train: bool = False):
-    x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
-    x = F.relu(conv(params["stem"]["w"], x, stride=2) + _bias(params["stem"]["b"], x))
+    x = _inputs(images, train)
+    x, part = _conv_bias(params["stem"], x, stride=2)
+    x = _gathered(F.relu(x), part)
     for gi, group in enumerate(FIRE_CFG):
         x = maxpool(x)
         for fi, _ in enumerate(group):
             x = _fire(params[f"fire{gi}_{fi}"], x)
-    x = conv(params["classifier"]["w"], x) + _bias(params["classifier"]["b"], x)
-    logits = F.relu(x).mean(dim=(2, 3))
-    return logits.to(torch.float32), {}
+    x, part = _conv_bias(params["classifier"], x)
+    logits = F.relu(x).mean(dim=(2, 3)).to(torch.float32)  # over ranks: the rank's classes
+    return on_mesh(logits, mesh_of(images), {0: local_slice(images, 0)[1], 1: part[1]}), {}

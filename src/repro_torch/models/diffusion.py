@@ -20,8 +20,24 @@ directly (the kernel is the reference's kernel for that math).  A forward
 that builds an autograd graph takes the reference's differentiable
 branches instead, and with ``cfg.remat`` checkpoints each block (DiT's,
 Flux's double and single alike) as the reference's ``jax.checkpoint``
-does.  The reference's sharding hints (``shard``, ``_pin_replicated``) are
-identities on one card and are left out.
+does.
+
+Under mesh rules (``launch/steps.build_cell(..., rules=)``, a sampling step
+over ``torch.distributed`` ranks) the arguments are DTensors and each rank
+computes on its local shards, as the reference's GSPMD partitions the
+step: the batch on ``data``; attention on the rank's heads and the MLPs
+column- then row-parallel on ``model`` (``models/layers``); the adaLN
+modulation ``[B, n·d]``, whose columns split over ``mlp``, gathered whole
+before it is chunked (``_mod``: a gather of a few kB a row, where giving
+each rank the chunks it owns would split every chunk across ranks).
+DiT's residual is whole on ``model``; Flux's image residual, and the joint
+sequence of its single blocks, split over the sequence (``act_seq``) at
+the reference's ``shard`` points: gathered once a sublayer before the
+attention or MLP reads it, the row-parallel partials summed and cut back
+to the rank's rows (one sum for a single block's attention and MLP
+together).  Flux's text stream stays whole on ``model``.  The reference's
+``_pin_replicated`` only steers its partitioner; here each rank attends
+over its own heads.  On one card every ``shard`` is the identity.
 """
 from __future__ import annotations
 
@@ -32,8 +48,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from ..sharding.rules import all_gather
 from . import layers as L
-from .common import checkpointed, spec, stack_specs, unstack_tree
+from .common import (checkpointed, like, local, local_slice, mesh_of, rows_like, shard, spec, stack_specs, tree_map,
+                     unstack_tree)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -151,40 +169,58 @@ def _unpatchify(x, p, h, w, c_out):
     return x.reshape(B, h * p, w * p, c_out)
 
 
+def _res(x, g, y):
+    """The gated residual ``x + g·y`` (g [B, D] a row), laid out as ``x``."""
+    return like(x, local(x) + local(g)[:, None, :] * local(y))
+
+
+def _linear(p, x):
+    """``x @ w + b`` of a replicated (``embed``-less) projection on the
+    local rows of ``x``."""
+    xl = local(x)
+    return xl @ local(p["w"]).to(xl.dtype) + local(p["b"]).to(xl.dtype)
+
+
+def _mod(p, cond, n):
+    """The adaLN modulation ``cond @ w + b`` in ``n`` chunks of [B, D].  Over
+    ranks ``w``'s columns split over ``mlp``: each rank makes its columns
+    and they are gathered whole before the chunks are cut, as the chunks'
+    boundaries do not fall on the ranks'."""
+    m = _linear(p, cond)
+    return torch.chunk(all_gather(m, -1, mesh_of(p["w"]), local_slice(p["w"], 1)[1]), n, dim=-1)
+
+
 def _dit_block(c: DiTConfig, p, x, cond):
-    mod = cond @ p["adaln"]["w"].to(cond.dtype) + p["adaln"]["b"].to(cond.dtype)
-    sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+    sh1, sc1, g1, sh2, sc2, g2 = _mod(p["adaln"], cond, 6)
     h = L.modulate(L.layernorm(p["ln1"], x), sh1, sc1)
     a, _ = L.attention(c.attn_cfg(), p["attn"], h)
-    x = x + g1[:, None, :] * a
+    x = shard(_res(x, g1, a), "batch", None, None)
     h = L.modulate(L.layernorm(p["ln2"], x), sh2, sc2)
     f = L.mlp(p["mlp"], h)
-    return x + g2[:, None, :] * f
+    return shard(_res(x, g2, f), "batch", None, None)
 
 
 def dit_forward(c: DiTConfig, params, x_t, t, y):
     """x_t: [B, L, L, C] latent; t: [B]; y: [B] int labels.
     Returns [B, L, L, 2C] f32 (noise prediction + sigma channels)."""
-    B, H, W, _ = x_t.shape
+    _, H, W, _ = x_t.shape
     p = c.patch
-    x = _patchify(x_t.to(torch.bfloat16), p)
-    x = x @ params["x_embed"]["w"].to(x.dtype) + params["x_embed"]["b"].to(x.dtype)
+    x = _linear(params["x_embed"], _patchify(local(x_t).to(torch.bfloat16), p))
     x = x + _pos_embed(c.d_model, H // p, W // p, x.device).to(x.dtype)
+    x = shard(rows_like(x_t, x), "batch", None, None)
 
-    temb = L.mlp(params["t_embed"], timestep_embedding(t, 256).to(torch.bfloat16), act=F.silu)
-    yemb = params["y_embed"].to(torch.bfloat16)[y]
-    cond = F.silu(temb + yemb)
+    temb = L.mlp(params["t_embed"], rows_like(t, timestep_embedding(local(t), 256).to(torch.bfloat16)), act=F.silu)
+    yemb = local(params["y_embed"]).to(torch.bfloat16)[local(y)]
+    cond = F.silu(local(temb) + yemb)
 
     block = checkpointed(c.remat, _dit_block)
     for blk in unstack_tree(params["blocks"]):
         x = block(c, blk, x, cond)
 
     fin = params["final"]
-    mod = cond @ fin["adaln"]["w"].to(cond.dtype) + fin["adaln"]["b"].to(cond.dtype)
-    sh, sc = torch.chunk(mod, 2, dim=-1)
-    x = L.modulate(L.layernorm(fin["ln"], x), sh, sc)
-    x = x @ fin["proj"]["w"].to(x.dtype) + fin["proj"]["b"].to(x.dtype)
-    return _unpatchify(x.to(torch.float32), p, H // p, W // p, 2 * c.in_ch)
+    sh, sc = _mod(fin["adaln"], cond, 2)
+    x = _linear(fin["proj"], L.modulate(L.layernorm(fin["ln"], x), sh, sc))
+    return rows_like(x_t, _unpatchify(x.to(torch.float32), p, H // p, W // p, 2 * c.in_ch))
 
 
 def dit_train_loss(c: DiTConfig, params, x0, t, y, noise):
@@ -201,14 +237,15 @@ def dit_train_loss(c: DiTConfig, params, x0, t, y, noise):
 def dit_sample_step(c: DiTConfig, params, x_t, t, dt, y):
     """One DDIM-style step from t to t - dt (cosine schedule)."""
     pred = dit_forward(c, params, x_t, t * 1000.0, y)
-    eps = pred[..., : c.in_ch].to(torch.float32)
-    a_t = torch.cos(0.5 * math.pi * t)[:, None, None, None]
-    s_t = torch.sin(0.5 * math.pi * t)[:, None, None, None]
-    x0 = (x_t - s_t * eps) / torch.clamp(a_t, min=1e-4)
-    t2 = torch.clamp(t - dt, min=0.0)
+    eps = local(pred)[..., : c.in_ch].to(torch.float32)
+    xl, tl = local(x_t), local(t)
+    a_t = torch.cos(0.5 * math.pi * tl)[:, None, None, None]
+    s_t = torch.sin(0.5 * math.pi * tl)[:, None, None, None]
+    x0 = (xl - s_t * eps) / torch.clamp(a_t, min=1e-4)
+    t2 = torch.clamp(tl - local(dt), min=0.0)
     a2 = torch.cos(0.5 * math.pi * t2)[:, None, None, None]
     s2 = torch.sin(0.5 * math.pi * t2)[:, None, None, None]
-    return a2 * x0 + s2 * eps
+    return like(x_t, a2 * x0 + s2 * eps)
 
 
 # ---------------------------------------------------------------------------
@@ -304,88 +341,95 @@ def flux_abstract_params(c: FluxConfig) -> dict:
     }
 
 
-def _mod(p, vec, n):
-    m = vec @ p["w"].to(vec.dtype) + p["b"].to(vec.dtype)
-    return torch.chunk(m, n, dim=-1)
-
-
-def _joint_attention(c: FluxConfig, p_img, p_txt, img, txt):
-    """Compute q/k/v per stream, attend jointly over [txt; img]."""
+def _joint_attention(c: FluxConfig, p_img, p_txt, img, txt, onto=None):
+    """Compute q/k/v per stream, attend jointly over [txt; img].  Over ranks
+    on the rank's heads: the text output summed whole, the image output
+    summed and cut to ``onto``'s rows (the image residual's)."""
     ac = c.attn_cfg()
-    qi, ki, vi = L._qkv(ac, p_img, img, None)  # no rope: positions unused
-    qt, kt, vt = L._qkv(ac, p_txt, txt, None)
+    mesh, lpi, lpt = mesh_of(img), tree_map(local, p_img), tree_map(local, p_txt)
+    qi, ki, vi = L._qkv(ac, lpi, local(img), None)  # no rope: positions unused
+    qt, kt, vt = L._qkv(ac, lpt, local(txt), None)
     q = torch.cat([qt, qi], dim=1)
     k = torch.cat([kt, ki], dim=1)
     v = torch.cat([vt, vi], dim=1)
     out = L._attend(ac, q, k, v)
-    ot, oi = out[:, : txt.shape[1]], out[:, txt.shape[1] :]
-    yi = torch.einsum("bshk,hkd->bsd", oi, p_img["wo"].to(img.dtype)) + p_img["bo"].to(img.dtype)
-    yt = torch.einsum("bshk,hkd->bsd", ot, p_txt["wo"].to(txt.dtype)) + p_txt["bo"].to(txt.dtype)
-    return yi, yt
+    T, dtype, axes = qt.shape[1], qt.dtype, local_slice(p_img["wq"], 1)[1]
+    ot, oi = out[:, :T], out[:, T:]
+    yi = L._summed(L._partial("bshk,hkd->bsd", oi, lpi["wo"], axes), mesh, axes, dtype, onto) + lpi["bo"].to(dtype)
+    yt = L._summed(L._partial("bshk,hkd->bsd", ot, lpt["wo"], axes), mesh, axes, dtype) + lpt["bo"].to(dtype)
+    return like(img if onto is None else onto, yi), like(txt, yt)
 
 
 def _double_block(c: FluxConfig, p, img, txt, vec):
     mi = _mod(p["img"]["mod"], vec, 6)
     mt = _mod(p["txt"]["mod"], vec, 6)
-    hi = L.modulate(L.layernorm(p["img"]["ln1"], img), mi[0], mi[1])
+    # The seq-split image residual gathered once a sublayer, before q/k/v or the MLP read it.
+    hi = shard(L.modulate(L.layernorm(p["img"]["ln1"], img), mi[0], mi[1]), "batch", None, None)
     ht = L.modulate(L.layernorm(p["txt"]["ln1"], txt), mt[0], mt[1])
-    ai, at = _joint_attention(c, p["img"]["attn"], p["txt"]["attn"], hi, ht)
-    img = img + mi[2][:, None] * ai
-    txt = txt + mt[2][:, None] * at
-    hi2 = L.modulate(L.layernorm(p["img"]["ln2"], img), mi[3], mi[4])
-    fi = L.mlp(p["img"]["mlp"], hi2)
+    ai, at = _joint_attention(c, p["img"]["attn"], p["txt"]["attn"], hi, ht, onto=img)
+    img = shard(_res(img, mi[2], ai), "batch", "act_seq", None)
+    txt = _res(txt, mt[2], at)
+    hi2 = shard(L.modulate(L.layernorm(p["img"]["ln2"], img), mi[3], mi[4]), "batch", None, None)
+    fi = L.mlp(p["img"]["mlp"], hi2, onto=img)
     ft = L.mlp(p["txt"]["mlp"], L.modulate(L.layernorm(p["txt"]["ln2"], txt), mt[3], mt[4]))
-    img = img + mi[5][:, None] * fi
-    txt = txt + mt[5][:, None] * ft
+    img = shard(_res(img, mi[5], fi), "batch", "act_seq", None)
+    txt = _res(txt, mt[5], ft)
     return img, txt
 
 
 def _single_block(c: FluxConfig, p, x, vec):
     sh, sc, g = _mod(p["mod"], vec, 3)
-    h = L.modulate(L.layernorm(p["ln"], x), sh, sc)
+    h = shard(L.modulate(L.layernorm(p["ln"], x), sh, sc), "batch", None, None)
     ac = c.attn_cfg()
-    q, k, v = L._qkv(ac, p["attn"], h, None)
+    mesh, hl, lp = mesh_of(x), local(h), tree_map(local, p)
+    q, k, v = L._qkv(ac, lp["attn"], hl, None)
     o = L._attend(ac, q, k, v)
-    a = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(x.dtype)) + p["attn"]["bo"].to(x.dtype)
-    f = L._gelu(h @ p["mlp_in"].to(h.dtype)) @ p["mlp_out"].to(h.dtype)
-    # attn and MLP share the residual
-    return x + g[:, None] * (a + f)
+    head_axes, mlp_axes = local_slice(p["attn"]["wq"], 1)[1], local_slice(p["mlp_in"], 1)[1]
+    a = L._partial("bshk,hkd->bsd", o, lp["attn"]["wo"], head_axes)
+    f = L._partial("...f,fd->...d", L._gelu(hl @ lp["mlp_in"].to(hl.dtype)), lp["mlp_out"], mlp_axes)
+    # attn and MLP share the residual: one sum of their partials onto x's rows, one reshard
+    if head_axes == mlp_axes:
+        af = L._summed(a + f, mesh, head_axes, hl.dtype, x)
+    else:
+        af = L._summed(a, mesh, head_axes, hl.dtype, x) + L._summed(f, mesh, mlp_axes, hl.dtype, x)
+    return shard(_res(x, g, af + lp["attn"]["bo"].to(hl.dtype)), "batch", "act_seq", None)
 
 
 def flux_forward(c: FluxConfig, params, img_lat, txt, vec, t, guidance=None):
     """img_lat: [B, R, R, C]; txt: [B, T, txt_dim]; vec: [B, vec_dim];
     t: [B] in [0,1]; guidance: [B] scale.  Returns velocity [B, R, R, C] f32."""
-    B, H, W, _ = img_lat.shape
+    _, H, W, _ = img_lat.shape
     p = c.patch
-    img = _patchify(img_lat.to(torch.bfloat16), p)
-    img = img @ params["img_in"]["w"].to(img.dtype) + params["img_in"]["b"].to(img.dtype)
+    img = _linear(params["img_in"], _patchify(local(img_lat).to(torch.bfloat16), p))
     img = img + _pos_embed(c.d_model, H // p, W // p, img.device).to(img.dtype)
-    txt = txt.to(torch.bfloat16) @ params["txt_in"]["w"].to(torch.bfloat16) + params["txt_in"]["b"].to(
-        torch.bfloat16
-    )
+    img = shard(rows_like(img_lat, img), "batch", "act_seq", None)
+    txt = rows_like(img_lat, _linear(params["txt_in"], local(txt).to(torch.bfloat16)))
 
-    cond = L.mlp(params["t_embed"], timestep_embedding(t * 1000.0, 256).to(torch.bfloat16), act=F.silu)
-    cond = cond + L.mlp(params["vec_in"], vec.to(torch.bfloat16), act=F.silu)
+    def embed(p_mlp, v):
+        return local(L.mlp(p_mlp, rows_like(img_lat, v.to(torch.bfloat16)), act=F.silu))
+
+    cond = embed(params["t_embed"], timestep_embedding(local(t) * 1000.0, 256))
+    cond = cond + embed(params["vec_in"], local(vec))
     if c.guidance and guidance is not None:
-        cond = cond + L.mlp(
-            params["g_embed"], timestep_embedding(guidance * 1000.0, 256).to(torch.bfloat16), act=F.silu
-        )
+        cond = cond + embed(params["g_embed"], timestep_embedding(local(guidance) * 1000.0, 256))
     cond = F.silu(cond)
 
     double, single = checkpointed(c.remat, _double_block), checkpointed(c.remat, _single_block)
     for blk in unstack_tree(params["double"]):
         img, txt = double(c, blk, img, txt, cond)
 
-    x = torch.cat([txt, img], dim=1)
+    # The joint sequence, split over act_seq as the single blocks' residual.
+    img = shard(img, "batch", None, None)
+    x = shard(like(img, torch.cat([local(txt), local(img)], dim=1)), "batch", "act_seq", None)
     for blk in unstack_tree(params["single"]):
         x = single(c, blk, x, cond)
-    img = x[:, c.txt_len :]
+    x = shard(x, "batch", None, None)  # the image rows cut across the ranks' rows: gathered first
+    img = like(x, local(x)[:, c.txt_len :])
 
     fin = params["final"]
     sh, sc = _mod(fin["adaln"], cond, 2)
-    img = L.modulate(L.layernorm(fin["ln"], img), sh, sc)
-    img = img @ fin["proj"]["w"].to(img.dtype) + fin["proj"]["b"].to(img.dtype)
-    return _unpatchify(img.to(torch.float32), p, H // p, W // p, c.in_ch)
+    img = _linear(fin["proj"], L.modulate(L.layernorm(fin["ln"], img), sh, sc))
+    return rows_like(img_lat, _unpatchify(img.to(torch.float32), p, H // p, W // p, c.in_ch))
 
 
 def flux_train_loss(c: FluxConfig, params, x0, txt, vec, t, noise):
@@ -401,4 +445,4 @@ def flux_train_loss(c: FluxConfig, params, x0, txt, vec, t, noise):
 def flux_sample_step(c: FluxConfig, params, x_t, txt, vec, t, dt, guidance):
     """One rectified-flow Euler step: x_{t-dt} = x_t - dt * v(x_t, t)."""
     v = flux_forward(c, params, x_t, txt, vec, t, guidance)
-    return x_t - dt[:, None, None, None] * v
+    return like(x_t, local(x_t) - local(dt)[:, None, None, None] * local(v))

@@ -24,9 +24,11 @@ step makes no host read.
 
 Over ranks (``launch/steps.build_cell`` with mesh rules) the layers take
 DTensors and compute on each rank's local shards, as the reference's GSPMD
-partitions them: ``attention`` and ``swiglu`` / ``mlp`` column-parallel in,
-row-parallel out, with one explicit sum over the ``model`` axis; the flash
-kernel on the rank's own heads; ``attention_decode`` over the rank's cache
+partitions them: ``layernorm``, ``modulate`` and ``_qkv`` on the local
+rows; ``attention`` and ``swiglu`` / ``mlp`` column-parallel in,
+row-parallel out, with one explicit sum over the ``model`` axis (of which
+``mlp`` keeps the rows of a residual split over its sequence, ``onto``); the
+flash kernel on the rank's own heads; ``attention_decode`` over the rank's cache
 slots, merged across the slots' axes (``_sdpa_split``); ``moe`` on the
 rank's experts.  Every collective goes through ``sharding.rules``.  On
 plain tensors the helpers of ``models.common`` are identities, so the same
@@ -71,17 +73,20 @@ def layernorm_specs(dim: int, axis: str = "embed") -> dict:
 
 
 def layernorm(params, x, eps: float = 1e-6):
-    """Normalizes in f32 (population variance, as ``jnp.var``), casts back."""
-    x32 = x.to(torch.float32)
+    """Normalizes in f32 (population variance, as ``jnp.var``), casts back.
+    A DTensor ``x`` (its last dim whole) is normalized on its local rows."""
+    xl, lp = local(x), tree_map(local, params)
+    x32 = xl.to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)).to(x.dtype)
+    return like(x, (y * lp["scale"].to(torch.float32) + lp["bias"].to(torch.float32)).to(xl.dtype))
 
 
 def modulate(x, shift, scale):
-    """adaLN modulation (DiT): x [B,S,D], shift/scale [B,D]."""
-    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    """adaLN modulation (DiT): x [B,S,D], shift/scale [B,D] (over ranks:
+    the rows of x's local batch, whole on D)."""
+    return like(x, local(x) * (1.0 + local(scale)[:, None, :]) + local(shift)[:, None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +146,15 @@ def attention_specs(c: AttnCfg) -> dict:
 
 
 def _qkv(c: AttnCfg, p, x, positions):
+    """q, k, v [B,S,H,hd] of x [B,S,D]; over ranks (a DTensor x) the rank's
+    heads of each, as DTensors split on batch as x and on heads as the
+    weights."""
+    if mesh_of(x) is not None:
+        lp = tree_map(local, p)
+        qkv = _qkv(c, lp, local(x), local(positions))
+        batch = local_slice(x, 0)[1]
+        return tuple(on_mesh(t, mesh_of(x), {0: batch, 2: local_slice(p[w], 1)[1]})
+                     for t, w in zip(qkv, ("wq", "wk", "wv")))
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
@@ -246,10 +260,14 @@ def _partial(eq: str, h, w, axes):
     return torch.einsum(eq, h, w.to(h.dtype))
 
 
-def _summed(y, mesh, axes, dtype):
+def _summed(y, mesh, axes, dtype, onto=None):
     """The ranks' partials ``y`` summed over the mesh ``axes`` in ``y``'s
-    dtype, then cast to ``dtype``; ``y`` itself where nothing splits."""
-    return all_sum(y, mesh, axes).to(dtype) if axes else y
+    dtype, then cast to ``dtype``; ``y`` itself where nothing splits.  With
+    ``onto`` (a residual DTensor split over its sequence, dim 1) only this
+    rank's rows of the sum along dim 1, as ``onto`` holds them."""
+    rows, row_axes = local_slice(onto, 1) if onto is not None else (None, ())
+    y = all_sum(y, mesh, axes).to(dtype) if axes else y
+    return y[:, rows] if row_axes else y
 
 
 def attention(c: AttnCfg, p, x, *, positions=None, mask=None):
@@ -428,14 +446,15 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x, act=_gelu):
+def mlp(p, x, act=_gelu, onto=None):
     """Over ranks: column-parallel ``w1``, row-parallel ``w2``, one sum,
-    then ``b2``."""
+    then ``b2``.  With ``onto`` (a residual split over its sequence) the
+    sum lands on ``onto``'s rows and the output is laid out as ``onto``."""
     xl, lp = local(x), tree_map(local, p)
     h = act(torch.einsum("...d,df->...f", xl, lp["w1"].to(xl.dtype)) + lp["b1"].to(xl.dtype))
     axes = local_slice(p["w1"], 1)[1]
-    y = _summed(_partial("...f,fd->...d", h, lp["w2"], axes), mesh_of(x), axes, xl.dtype)
-    return like(x, y + lp["b2"].to(xl.dtype))
+    y = _summed(_partial("...f,fd->...d", h, lp["w2"], axes), mesh_of(x), axes, xl.dtype, onto)
+    return like(x if onto is None else onto, y + lp["b2"].to(xl.dtype))
 
 
 # ---------------------------------------------------------------------------

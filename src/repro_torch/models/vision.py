@@ -13,6 +13,17 @@ runs the flash kernel once per block.  Swin's window attention is computed
 inline, with its relative-position bias and shift mask, as in the
 reference: it runs no kernel of the port, and none of its matmuls goes
 through ``models.common.matmul``.
+
+Under mesh rules (``launch/steps.build_cell(..., rules=)``, a
+``classify_serve`` step over ``torch.distributed`` ranks) the images and
+weights are DTensors and each rank computes on its local shards: the batch
+on ``data``; attention on the rank's heads and the MLPs column- then
+row-parallel on ``model`` (``models/layers``; a head count the ``model``
+extent does not divide stays whole on every rank, the MLP split all the
+same); Swin's window attention inline on the rank's heads, its
+relative-position bias sliced with them, and its patch merging's
+column-parallel output gathered whole for the next stage's norm.  The
+logits come back split over ``vocab`` as the head's columns are.
 """
 from __future__ import annotations
 
@@ -24,8 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import all_gather
 from . import layers as L
-from .common import shard, spec, stack_specs, unstack_tree
+from .common import (like, local, local_slice, mesh_of, on_mesh, rows_like, shard, spec, stack_specs, tree_map,
+                     unstack_tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,21 +101,27 @@ def _vit_block(c: ViTConfig, p, x):
     return shard(x + f, "batch", None, None)
 
 
+def _head(p, images, h):
+    """Logits f32 of the pooled features ``h`` (local rows, whole): over
+    ranks a DTensor of the rank's ``vocab`` columns."""
+    w, b = local(p["w"]), local(p["b"])
+    logits = (h @ w.to(h.dtype) + b.to(h.dtype)).to(torch.float32)
+    return on_mesh(logits, mesh_of(images), {0: local_slice(images, 0)[1], 1: local_slice(p["w"], 1)[1]})
+
+
 def vit_forward(c: ViTConfig, params, images):
     """images: [B, H, W, 3] -> logits [B, n_classes] f32."""
-    B = images.shape[0]
-    w = params["patch_embed"]["w"].to(torch.bfloat16)
-    x = F.conv2d(images.to(torch.bfloat16).permute(0, 3, 1, 2), w, stride=c.patch)  # VALID
-    x = x.permute(0, 2, 3, 1).reshape(B, -1, c.d_model) + params["patch_embed"]["b"].to(torch.bfloat16)
-    cls = params["cls"].to(x.dtype).expand(B, 1, c.d_model)
-    x = torch.cat([cls, x], dim=1) + params["pos"].to(x.dtype)
-    x = shard(x, "batch", None, None)
+    pe, imgs = tree_map(local, params["patch_embed"]), local(images)
+    B = imgs.shape[0]
+    x = F.conv2d(imgs.to(torch.bfloat16).permute(0, 3, 1, 2), pe["w"].to(torch.bfloat16), stride=c.patch)  # VALID
+    x = x.permute(0, 2, 3, 1).reshape(B, -1, c.d_model) + pe["b"].to(torch.bfloat16)
+    cls = local(params["cls"]).to(x.dtype).expand(B, 1, c.d_model)
+    x = torch.cat([cls, x], dim=1) + local(params["pos"]).to(x.dtype)
+    x = shard(rows_like(images, x), "batch", None, None)
     for blk in unstack_tree(params["blocks"]):  # the reference's lax.scan over the stacked blocks
         x = _vit_block(c, blk, x)
     x = L.layernorm(params["ln_f"], x)
-    h = x[:, 0]
-    logits = h @ params["head"]["w"].to(h.dtype) + params["head"]["b"].to(h.dtype)
-    return logits.to(torch.float32)
+    return _head(params["head"], images, local(x)[:, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +223,12 @@ def _window_tables(H: int, W: int, w: int, shift: int, device: torch.device):
 
 
 def _window_attention(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int, shift: int):
-    """x: [B, H*W, dim] -> same, windowed MSA with optional cyclic shift."""
+    """x: [B, H*W, dim] -> same, windowed MSA with optional cyclic shift.
+    Over ranks on the local batch rows and the rank's heads (``wq``/``wk``/
+    ``wv`` and ``rel_bias`` column slices, ``wo`` row-parallel: one sum)."""
+    mesh, out_like, head_axes = mesh_of(x), x, local_slice(p["wq"], 1)[1]
+    x, p = local(x), tree_map(local, p)
+    heads = p["wq"].shape[1]  # the rank's
     B = x.shape[0]
     w = c.window
     xs = x.reshape(B, H, W, dim)
@@ -224,12 +248,13 @@ def _window_attention(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int,
         logits = torch.where(mask.repeat(B, 1, 1)[:, None, None], logits, -1e30)
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", attn, v).reshape(BW, S, heads, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(xw.dtype)) + p["bo"].to(xw.dtype)
+    y = L._summed(L._partial("bshk,hkd->bsd", out, p["wo"], head_axes), mesh, head_axes, xw.dtype)
+    y = y + p["bo"].to(xw.dtype)
 
     ys = y.reshape(B, nh, nw, w, w, dim).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, dim)
     if shift:
         ys = torch.roll(ys, shifts=(shift, shift), dims=(1, 2))
-    return ys.reshape(B, H * W, dim)
+    return like(out_like, ys.reshape(B, H * W, dim))
 
 
 def _swin_block(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int, shift: int):
@@ -250,12 +275,12 @@ def _patch_merge(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
 
 def swin_forward(c: SwinConfig, params, images):
     """images: [B, H, W, 3] -> logits [B, n_classes] f32."""
-    B = images.shape[0]
-    pe = params["patch_embed"]
-    x = F.conv2d(images.to(torch.bfloat16).permute(0, 3, 1, 2), pe["w"].to(torch.bfloat16), stride=c.patch)  # VALID
+    pe, imgs = tree_map(local, params["patch_embed"]), local(images)
+    B = imgs.shape[0]
+    x = F.conv2d(imgs.to(torch.bfloat16).permute(0, 3, 1, 2), pe["w"].to(torch.bfloat16), stride=c.patch)  # VALID
     H = W = c.img_res // c.patch
     x = x.permute(0, 2, 3, 1).reshape(B, H * W, c.dims[0]) + pe["b"].to(torch.bfloat16)
-    x = L.layernorm(pe["ln"], x)
+    x = rows_like(images, L.layernorm(pe["ln"], x))
 
     for i, (depth, dim, heads) in enumerate(zip(c.depths, c.dims, c.n_heads)):
         stage = params[f"stage{i}"]
@@ -264,12 +289,13 @@ def swin_forward(c: SwinConfig, params, images):
         for idx, blk in enumerate(unstack_tree(stage["blocks"])):  # the reference's lax.scan; odd blocks shift
             x = _swin_block(c, dim, heads, blk, x, H, W, shift_amt if idx % 2 else 0)
         if i < len(c.depths) - 1:
-            # Patch merging: 2x2 neighbourhood concat + linear down-projection.
-            xs = L.layernorm(stage["merge"]["ln"], _patch_merge(x, H, W))
-            x = torch.einsum("bsd,dk->bsk", xs, stage["merge"]["w"].to(xs.dtype))
+            # Patch merging: 2x2 neighbourhood concat + linear down-projection,
+            # its columns (split over mlp on ranks) gathered whole for the next norm.
+            mw = stage["merge"]["w"]
+            xs = L.layernorm(stage["merge"]["ln"], _patch_merge(local(x), H, W))
+            y = torch.einsum("bsd,dk->bsk", xs, local(mw).to(xs.dtype))
+            x = rows_like(images, all_gather(y, 2, mesh_of(mw), local_slice(mw, 1)[1]))
             H, W = H // 2, W // 2
 
     x = L.layernorm(params["ln_f"], x)
-    h = x.mean(dim=1)
-    logits = h @ params["head"]["w"].to(h.dtype) + params["head"]["b"].to(h.dtype)
-    return logits.to(torch.float32)
+    return _head(params["head"], images, local(x).mean(dim=1))

@@ -1,5 +1,4 @@
 from .npu_exec import (  # noqa: F401
-    npu_dense,
     npu_execution,
     npu_forward,
 )

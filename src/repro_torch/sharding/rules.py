@@ -224,8 +224,8 @@ class MeshRules:
 
 
 # Collectives issued through this module since the process started, by kind
-# ("sum", "max", "gather": one per mesh axis of extent > 1; "redistribute":
-# one per call that moves data).
+# ("sum", "max", "gather": one per mesh axis of extent > 1;
+# "redistribute": one per call that moves data).
 COLLECTIVES: collections.Counter = collections.Counter()
 
 

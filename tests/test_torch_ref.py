@@ -33,17 +33,18 @@ REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 
 
-def reference_params(arch_name: str, seed: int, *, smoke: bool = True):
-    """Random weights for the reference's ``arch_name`` as numpy trees
-    (params, state), drawn with numpy from ``seed``: fan-in scaled normals
-    like ``init_tree`` (a spec's own ``scale`` where it has one, as ViT's
-    ``cls``/``pos``), and non-trivial BatchNorm statistics so carrying the
-    state across is exercised."""
+def reference_params(arch_name: str, seed: int, *, smoke: bool = True, arch=None):
+    """Random weights for the reference's ``arch_name`` (or the reference's
+    ``arch`` itself, where given) as numpy trees (params, state), drawn with
+    numpy from ``seed``: fan-in scaled normals like ``init_tree`` (a spec's
+    own ``scale`` where it has one, as ViT's ``cls``/``pos``), and
+    non-trivial BatchNorm statistics so carrying the state across is
+    exercised."""
     from repro import configs
     from repro.arch import abstract_params
     from repro.models.common import ParamSpec
 
-    arch = configs.get(arch_name, smoke=smoke)
+    arch = arch or configs.get(arch_name, smoke=smoke)
     specs, state_specs = abstract_params(arch)
     rng = np.random.default_rng(seed)
 

@@ -232,24 +232,28 @@ def test_train_state_bytes_fit_table(name):
 
 
 def test_unported_families_and_rules_raise():
-    """Under mesh rules the LMs' prefill and decode build (ROADMAP item 8.1),
-    each keeping its rules; every other kind raises, naming its ROADMAP
-    entry (8.2: denoise_step, classify_serve; 8.3: training); a family no
-    config registers and an arch no registry holds raise."""
+    """Under mesh rules the serving kinds build (ROADMAP items 8.1, 8.2: the
+    LMs' prefill and decode, denoise_step, classify_serve), each keeping its
+    rules, with a spec for every argument leaf; a training kind raises,
+    naming its ROADMAP entry (8.3); a family no config registers and an arch
+    no registry holds raise."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding import MeshRules, serve_rules
 
     mesh = make_host_mesh(2, 2)  # no process group: a descriptor
     rules = MeshRules(mesh, serve_rules(mesh))
     for name, shape in (("qwen3-0.6b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
-                        ("command-r-35b", "long_500k")):
+                        ("command-r-35b", "long_500k"), ("dit-xl2", "gen_fast"), ("flux-dev", "gen_1024"),
+                        ("resnet-50", "serve_b1"), ("efficientnet-b7", "serve_b128"), ("vit-s16", "serve_b1"),
+                        ("swin-b", "serve_b128")):
         prog = steps.build_cell(configs.get(name), shape, rules=rules)
-        assert prog.rules is rules and prog.kind in ("prefill", "decode")
+        assert prog.rules is rules and prog.kind in ("prefill", "decode", "denoise_step", "classify_serve")
         assert [len(common.tree_leaves(s)) for s in prog.shardings()] == [
             len(common.tree_leaves(s)) for s in prog.arg_specs]
     assert steps.build_cell(configs.get("qwen3-0.6b"), "decode_32k").shardings() is None
-    for name, shape, entry in (("dit-xl2", "gen_fast", "8.2"), ("resnet-50", "serve_b1", "8.2"),
-                               ("qwen3-0.6b", "train_4k", "8.3")):
+    assert steps.RULES_ENTRY == {"train": "item 8.3", "denoise_train": "item 8.3", "classify_train": "item 8.3"}
+    for name, shape, entry in (("qwen3-0.6b", "train_4k", "8.3"), ("dit-xl2", "train_256", "8.3"),
+                               ("resnet-50", "cls_224", "8.3")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP item {entry}\)"):
             steps.build_cell(configs.get(name), shape, rules=rules)
     unet = A.Arch("unet", "unet", None, shapes=(A.ShapeSpec("gen_fast", "denoise_step", 16, img=512),))

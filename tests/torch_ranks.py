@@ -266,6 +266,31 @@ def lm_case_arch(A, configs, case: dict):
     return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, kv_quant=case["quant"]))
 
 
+def serve_case_arch(A, configs, case: dict):
+    """The SMOKE arch of a diffusion or classifier ``case`` cut to its one
+    shape, its config replaced by ``case["cfg"]`` where given; either
+    package's ``arch`` and ``configs``."""
+    import dataclasses
+
+    shape = A.ShapeSpec(*case["shape"])
+    arch = dataclasses.replace(configs.get(case["arch"], smoke=True), shapes=(shape,))
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, **case.get("cfg", {})))
+
+
+def case_arch(A, configs, case: dict):
+    """An LM case's arch (it names its cache's quantization), else a
+    diffusion or classifier case's."""
+    return (lm_case_arch if "quant" in case else serve_case_arch)(A, configs, case)
+
+
+def in_f32(torch) -> None:
+    """Every model module of the port computes in f32 (``F32``)."""
+    from repro_torch.models import convnets, diffusion, lm, vision
+
+    for mod in (lm, diffusion, vision, convnets):
+        mod.torch = F32(torch, torch.float32)
+
+
 def laid_out(t) -> list:
     """A DTensor's local tensor as numpy, with the [start, stop) of each dim
     it holds of the global array."""
@@ -320,52 +345,90 @@ def lm_rule_steps(cases: dict) -> dict:
     return out
 
 
-def comm_guard(cases: dict) -> dict:
-    """Each case's ruled step under ``CommDebugMode``: every collective the
-    step issues against those issued inside ``sharding.rules``' helpers
-    (``all_sum``, ``all_max``, ``all_gather``, ``redistribute``), counted by
-    the same mode around each helper call, and the helpers' own tally."""
+def serve_rule_steps(cases: dict) -> dict:
+    """Each diffusion or classifier case (arch, shape, mesh, the step's numpy
+    arguments in the port's layout) through ``build_cell(...,
+    rules=MeshRules(mesh, serve_rules(mesh)))`` on this rank, in f32: the
+    mesh coordinate, ``shardings()``, the output's local shard and its
+    slices, and the collectives it issued (:func:`guarded`)."""
     import torch
-    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch import arch as A
     from repro_torch import configs, interop
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import layers as L
-    from repro_torch.models import lm
     from repro_torch.sharding import MeshRules, serve_rules
-    from repro_torch.sharding import rules as R
 
-    lm.torch = F32(torch, torch.float32)
+    in_f32(torch)
     out = {}
     for key, case in cases.items():
         mesh = make_host_mesh(**case["mesh"], device="cpu")
         rules = MeshRules(mesh, serve_rules(mesh))
-        prog = steps.build_cell(lm_case_arch(A, configs, case), case["shape"][0], rules=rules)
+        prog = steps.build_cell(serve_case_arch(A, configs, case), case["shape"][0], rules=rules)
         args = tuple(interop.place(a, s, rules, device="cpu") for a, s in zip(case["args"], prog.arg_specs))
-        inside, tally = [0], sum(R.COLLECTIVES.values())
-        with CommDebugMode() as mode:
-            def counted(fn):
-                def wrapped(*a, **kw):
-                    before = mode.get_total_counts()
-                    result = fn(*a, **kw)
-                    inside[0] += mode.get_total_counts() - before
-                    return result
-                return wrapped
+        y, comms = guarded(prog, args)
+        out[key] = {"coord": list(mesh.device_mesh.get_coordinate()),
+                    "shardings": [spec_lists(s) for s in prog.shardings()], "out": laid_out(y), "comms": comms}
+    return out
 
-            saved = {(m, n): getattr(m, n) for m in (R, L) for n in ("all_sum", "all_max", "all_gather", "redistribute")
-                     if hasattr(m, n)}
+
+HELPERS = ("all_sum", "all_max", "all_gather", "redistribute")
+
+
+def guarded(prog, args) -> tuple:
+    """``prog(*args)`` under ``CommDebugMode``, with ``sharding.rules``'
+    helpers (``HELPERS``, wherever a model module holds them) counted by
+    the same mode around each call: (the result, {every collective the step
+    issued, those issued inside the helpers, by kind, the helpers' own
+    tally ``rules.COLLECTIVES``})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.models import convnets, diffusion, vision
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import rules as R
+
+    inside, tally = [0], sum(R.COLLECTIVES.values())
+    with CommDebugMode() as mode:
+        def counted(fn):
+            def wrapped(*a, **kw):
+                before = mode.get_total_counts()
+                result = fn(*a, **kw)
+                inside[0] += mode.get_total_counts() - before
+                return result
+            return wrapped
+
+        saved = {(m, n): getattr(m, n) for m in (R, L, diffusion, vision, convnets) for n in HELPERS if hasattr(m, n)}
+        for (m, n), fn in saved.items():
+            setattr(m, n, counted(fn))
+        try:
+            result = prog(*args)
+        finally:
             for (m, n), fn in saved.items():
-                setattr(m, n, counted(fn))
-            try:
-                prog(*args)
-            finally:
-                for (m, n), fn in saved.items():
-                    setattr(m, n, fn)
-        out[key] = {"total": mode.get_total_counts(), "inside": inside[0],
+                setattr(m, n, fn)
+    return result, {"total": mode.get_total_counts(), "inside": inside[0],
                     "by_kind": {str(k): v for k, v in mode.get_comm_counts().items()},
                     "tally": sum(R.COLLECTIVES.values()) - tally}
+
+
+def comm_guard(cases: dict) -> dict:
+    """Each case's ruled step (an LM's or a diffusion or classifier one)
+    through :func:`guarded`: its collective counts."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import MeshRules, serve_rules
+
+    in_f32(torch)
+    out = {}
+    for key, case in cases.items():
+        mesh = make_host_mesh(**case["mesh"], device="cpu")
+        rules = MeshRules(mesh, serve_rules(mesh))
+        prog = steps.build_cell(case_arch(A, configs, case), case["shape"][0], rules=rules)
+        args = tuple(interop.place(a, s, rules, device="cpu") for a, s in zip(case["args"], prog.arg_specs))
+        out[key] = guarded(prog, args)[1]
     return out
 
 
