@@ -117,10 +117,10 @@ Phases (each raises on failure, so any failure exits non-zero):
                   policies: 20-point golden grids (the max_* policies also
                   under a piecewise trace, the track policies on their own
                   grid) against SWEEP_GOLDENS, the reference's numbers; then
-                  1000 points x 900 frames a policy, twice, every 100th
+                  1000 points x 900 frames a policy, twice, every 200th
                   point re-run on the host CPU bit for bit; max_utility over
                   10,000 points chunked against unchunked; the per-point
-                  loop on the card at 10 and 50 points; ms per point,
+                  loop on the card at 5 and 25 points; ms per point,
                   groups, rounds, host reads per round and peak card memory
  10. online       Session.run_sweep(mode="online") through the lane-batched
                   online engine (core/sim_online_batch) on device="cuda" for
@@ -129,7 +129,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   against ONLINE_GOLDENS, the reference's numbers; the
                   adaptivity bench's 1000-point grid over 60 frames, twice,
                   every point against the per-point run_online loop on the
-                  card; the same grid over 900 frames with every 20th point
+                  card; the same grid over 900 frames with every 40th point
                   re-run on the host CPU bit for bit
  11. fleet        Session.run_sweep on fleet grids through the lane-batched
                   fleet engine (core/sim_multi_batch) on device="cuda" for
@@ -141,7 +141,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   multistream bench's widths, 60 frames: 1008 points
                   (bandwidth x deadline x n_clients 2/4/8 x allocation)
                   for offload and max_*, 216 for the others, each twice,
-                  every 100th point against the per-point run_multi loop on
+                  every 200th point against the per-point run_multi loop on
                   the card and against the engine on the host CPU; ms per
                   point, groups, rounds, host reads per round, drain
                   replays, peak card memory
@@ -166,7 +166,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   card, Shard(0) -> Replicate, exact; no kernel launch in
                   (a)-(d); (e) the LMs' serving steps through
                   build_cell(..., rules=MeshRules(mesh, serve_rules(mesh)))
-                  (MESH_MODELS: qwen3-0.6b whole on a (2, 2) mesh,
+                  (MESH_MODELS: qwen3-0.6b at 14 of 28 layers on a (2, 2) mesh,
                   qwen2-moe-a2.7b at 2 layers on (1, 4) with its experts
                   split; batch 2, a 4096-token prefill, decode steps
                   against 32768 filled slots whose length crosses a split
@@ -195,12 +195,31 @@ Phases (each raises on failure, so any failure exits non-zero):
                   CLASSIFY_RTOL (the logits) of one rank's, a control
                   for each beyond (a rank's attention partial left out,
                   a rank's stem channels lost); ms a step on 4 ranks
-                  against one, collectives a step, peak memory per rank
+                  against one, collectives a step, peak memory per rank;
+                  (g) the training kinds through build_cell(...,
+                  rules=MeshRules(mesh, train_rules(mesh))) (MESH_TRAIN:
+                  qwen3-0.6b and dit-xl2 at 2 layers, vit-s16 and
+                  resnet-50 whole on (2, 2); qwen2-moe-a2.7b at 2 layers
+                  and flux-dev at 1 + 1 blocks on (1, 4); full width,
+                  seed-0 f32), first on one rank here, then on the ranks,
+                  both with the model modules in f32: value_and_grad and
+                  one AdamW step, the loss within TRAIN_LOSS_RTOL, the
+                  gradients and each rank's stepped shards within
+                  TRAIN_GRAD_RTOL (TRAIN_GRAD_RTOL_BN for ResNet-50) of
+                  one rank's, a control beyond (a rank's gradient left out
+                  of the sum over data; the sum over model of a
+                  column-parallel input's gradient left out); the bf16
+                  distance, ms a step on 4 ranks against one, collectives
+                  a step forward and backward, peak memory per rank; no
+                  kernel launch.  ``--mesh-parts train`` (any of sweeps,
+                  models, serve, train, comma-separated) runs the phase
+                  alone with those parts after the environment, a
+                  rehearsal that prints no result line
  14. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
-                  and in phases 7b-12 and the mesh phase's (a)-(d); its
-                  (e)'s and (f)'s flash launches, here and on the ranks,
-                  counted), then the contract's last line
+                  and in phases 7b-12 and the mesh phase's (a)-(d) and (g);
+                  its (e)'s and (f)'s flash launches, here and on the
+                  ranks, counted), then the contract's last line
 
 Every main-path phase (serve_full, vit_full, zoo_full, lm_full, diffusion_full,
 train_full, serving) sets both kernels' launch counts to 0 just before it runs and reads them just after;
@@ -499,16 +518,16 @@ SWEEP_DL = [100.0, 150.0, 200.0, 250.0, 350.0]
 SWEEP_FPS = [10.0, 15.0, 24.0, 30.0, 60.0]
 SWEEP_TRACE = {"kind": "piecewise", "rtt_ms": 60.0,  # steps through the 30 s stream
                "points": [[0.0, 3.0], [5.0, 0.8], [10.0, 6.0], [15.0, 1.5], [20.0, 4.0], [25.0, 0.5]]}
-CPU_CHECK_EVERY = 100  # the host CPU re-runs every 100th full-width point: 10 a policy
+CPU_CHECK_EVERY = 200  # the host CPU re-runs every 200th full-width point: 5 a policy
 CHUNK_POINTS, CHUNK_SIZE = 10_000, 2500  # max_utility at 24 frames, chunked against unchunked
 PROFILE_FRAMES = 300  # the profiled group's stream (eager rounds take ~20 ms each)
-REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 10 and 50 points
-    10: {"bandwidth_mbps": [1.0, 3.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
-    50: {"bandwidth_mbps": SWEEP_BW, "deadline_ms": SWEEP_DL, "fps": [30.0]},
+REFERENCE_GRIDS = {  # the per-point loop (backend="reference") on the card: 5 and 25 points
+    5: {"bandwidth_mbps": [1.0], "deadline_ms": SWEEP_DL, "fps": [30.0]},
+    25: {"bandwidth_mbps": SWEEP_BW[::2], "deadline_ms": SWEEP_DL, "fps": [30.0]},
 }
-# Policies whose per-point loop runs at 10 points only: the jax_* planners take
+# Policies whose per-point loop runs at 5 points only: the jax_* planners take
 # 0.6-1.9 s a point on the card (phase 8).
-LOOP_AT_10_ONLY = ("jax_accuracy", "jax_utility")
+LOOP_AT_5_ONLY = ("jax_accuracy", "jax_utility")
 
 # The online phase: Session.run_sweep(mode="online") through the lane-batched
 # online engine (core/sim_online_batch), held against the reference's numbers
@@ -530,7 +549,7 @@ ONLINE_SQUARE = {"kind": "piecewise", "points": [[0.0, 3.5], [1.0, 0.8]], "rtt_m
 ADAPT_FRAMES, ADAPT_LONG_FRAMES = 60, 900
 ADAPT_GRID = {"deadline_ms": [200.0, 208.0, 216.0, 224.0, 232.0],
               "rtt_ms": [50.0 + 60.0 * i / 200 for i in range(200)]}
-ONLINE_CPU_EVERY = 20
+ONLINE_CPU_EVERY = 40
 
 # The fleet phase: Session.run_sweep on fleet grids through the lane-batched
 # fleet engine (core/sim_multi_batch), held against the reference's numbers
@@ -559,7 +578,7 @@ FLEET_SMALL_GRID = {**FLEET_GRID, "bandwidth_mbps": [1.0, 2.5, 4.0, 6.0, 9.0, 12
 FLEET_WIDE = ("offload", "max_accuracy", "max_utility")  # 1008 points; the others at 216; each twice
 FLEET_WIDE_PARAMS = {"max_accuracy": {"grid": 10e-3}, "max_utility": {"alpha": 150.0}}  # the bench's grid
 FLEET_BASE = {"trace": {"kind": "constant", "mbps": 6.0}, "fleet": {"n_clients": 2, "capacity": 4}}
-FLEET_SAMPLE_EVERY = 100  # every 100th full-width point against the loop and the host CPU
+FLEET_SAMPLE_EVERY = 200  # every 200th full-width point against the loop and the host CPU
 
 # The mesh phase: MESH_RANKS ranks of the port, each its own spawned process
 # on cuda:{rank % device_count} (all of them on the one card here), joined
@@ -572,24 +591,27 @@ FLEET_SAMPLE_EVERY = 100  # every 100th full-width point against the loop and th
 # on the card; the results must equal the earlier phases' one-rank results
 # (ONE_RANK) and the goldens.  Then (e) the LMs' serving steps under
 # serve_rules on the ranks (MESH_MODELS), held against the same steps run
-# by the parent on one rank just before, and (f) the diffusion and
-# classifier serving steps likewise (MESH_SERVE).  The ranks must end within
+# by the parent on one rank just before, (f) the diffusion and classifier
+# serving steps likewise (MESH_SERVE), and (g) a training step of each
+# training kind under train_rules (MESH_TRAIN).  The ranks must end within
 # MESH_TIMEOUT.
 MESH_RANKS = 4
-MESH_TIMEOUT = 270  # seconds for the ranks, start to end: the phase's budget, 60 of them for (f)
-MESH_PARTS = ("sweeps", "models", "serve")  # (a)-(d), (e) and (f); a rehearsal runs one
+MESH_TIMEOUT = 360  # seconds for the ranks, start to end: the phase's budget, 60 of them for (f), 90 for (g)
+MESH_PARTS = ("sweeps", "models", "serve", "train")  # (a)-(d), (e), (f) and (g); a rehearsal runs one
 MESH_ONLINE = "max_utility/lattice"
 MESH_FLEET = "max_accuracy/planner"
 MESH_LARGE = "max_utility"
 MESH_CKPT = ("qwen3-0.6b", "train_4k")
 ONE_RANK: dict = {}  # filled by the sweep, online and fleet phases
 # (e): (config, depth (None: whole), (data, model) mesh, decode steps checked,
-# the decode cache's length before them).  The cache holds LM_DECODE_LEN
+# the decode cache's length before them; for (g)'s time qwen3's depth cut
+# from 28 layers to 14 and its checked decode steps from 16 to 8).  The
+# cache holds LM_DECODE_LEN
 # slots at MESH_BATCH, every one filled (``fill_cache``), and the length
 # starts a few slots before the first split of its slots over ``model``, so
 # the new tokens' writes and the valid slots cross ranks.
 MESH_BATCH = 2
-MESH_MODELS = (("qwen3-0.6b", None, (2, 2), LM_DECODE_STEPS, LM_DECODE_LEN // 2 - LM_DECODE_STEPS // 2),
+MESH_MODELS = (("qwen3-0.6b", 14, (2, 2), LM_DECODE_STEPS // 2, LM_DECODE_LEN // 2 - LM_DECODE_STEPS // 4),
                ("qwen2-moe-a2.7b", 2, (1, 4), 4, LM_DECODE_LEN // 4 - 2))
 MESH_TIMED = 4  # decode steps timed after the checked ones (a prefill: one, after the checked one)
 MESH_CONTROL_STEPS = 2  # LM_CONTROL's decode steps that leave the slots of a rank out of the merge
@@ -617,6 +639,31 @@ MESH_SERVE = (("dit-xl2", "gen_fast", (2, 2), 2, None, None),
 # output channels on one rank are lost (a quarter or half of the stem's
 # features: tens of percent).  PERF.md §6.
 CLASSIFY_RTOL = 0.05
+# (g): the training kinds under train_rules on the ranks (MESH_TRAIN), each
+# case's value_and_grad and one AdamW step held against the same run by the
+# parent on one rank just before, with the model modules in f32 on both
+# (in_f32).  (config, shape, (data, model) mesh, depth (None: whole; Flux:
+# (double, single) blocks), batch, sequence length (None: the shape's), image
+# side (None: the shape's)).  Every model at full width, seed-SEED f32
+# weights, the zero-init leaves drawn (draw_zero_leaves) and the attention
+# matrices at their own fan-in (own_fan_in).  Cuts, fixed before (g)'s first
+# run: qwen3 2 of 28 layers, batch 256 -> 4, seq 4096 -> 1024; qwen2-moe 2
+# of 24 layers, batch -> 2, seq -> 1024; DiT 2 of 28 layers, batch -> 4;
+# Flux 1 + 1 blocks, batch -> 2; ViT and ResNet-50 whole, batch -> 8.
+MESH_TRAIN = (("qwen3-0.6b", "train_4k", (2, 2), 2, 4, 1024, None),
+              ("qwen2-moe-a2.7b", "train_4k", (1, 4), 2, 2, 1024, None),
+              ("dit-xl2", "train_256", (2, 2), 2, 4, None, None),
+              ("flux-dev", "train_256", (1, 4), (1, 1), 2, None, None),
+              ("vit-s16", "cls_224", (2, 2), None, 8, None, None),
+              ("resnet-50", "cls_224", (2, 2), None, 8, None, None))
+MESH_TRAIN_ADAMW = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 100}
+# The gradients and the stepped state are compared on every
+# MESH_TRAIN_STRIDE-th element of a leaf (its flat global index; a prime, so
+# the sample crosses every row and column of a matrix), every element of a
+# leaf of at most MESH_TRAIN_WHOLE: one rank's reference is written to disk
+# for the ranks to read, and qwen2-moe's whole state and gradients are 34 GB.
+MESH_TRAIN_STRIDE = 101
+MESH_TRAIN_WHOLE = 1 << 20
 
 
 def log(msg: str) -> None:
@@ -656,7 +703,7 @@ def own_fan_in(params, cfg):
     return params
 
 
-def draw_zero_leaves(common, params, specs, gen):
+def draw_zero_leaves(common, params, specs, gen, rules=None):
     """Draw, in place, every leaf whose spec initializes it to zeros as a
     fan-in normal (``common.init_param`` under ``init="normal"``, the
     spec's dtype), and return ``params``.  The diffusion models are
@@ -665,12 +712,14 @@ def draw_zero_leaves(common, params, specs, gen):
     ``flux_forward`` return exactly 0 whatever the attention computes, and
     a sample step returns a rescaled ``x_t``: a comparison of two attentions
     on those weights could not fail.  The zero biases are drawn too, so no
-    leaf is left at its constant."""
+    leaf is left at its constant.  Under ``rules`` (a leaf a DTensor of
+    this rank's slice) each leaf is drawn whole and its slice kept."""
     for key, s in specs.items():
         if isinstance(s, dict):
-            draw_zero_leaves(common, params[key], s, gen)
+            draw_zero_leaves(common, params[key], s, gen, rules)
         elif s.init == "zeros":
-            params[key] = common.init_param(gen, dataclasses.replace(s, init="normal"), params[key].device)
+            drawn = common.init_param(gen, dataclasses.replace(s, init="normal"), params[key].device)
+            params[key] = drawn if rules is None else rules.place(drawn, s)
     return params
 
 
@@ -2613,7 +2662,7 @@ def phase_sweep(torch, core, session, smi: str) -> None:
         # The per-point loop (backend="reference") on the card, for comparison.
         ref_ms = {}
         for n_ref, grid in REFERENCE_GRIDS.items():
-            if name in LOOP_AT_10_ONLY and n_ref > min(REFERENCE_GRIDS):
+            if name in LOOP_AT_5_ONLY and n_ref > min(REFERENCE_GRIDS):
                 continue
             spec = session.ScenarioSpec.from_json(sweep_spec(name, SWEEP_FRAMES))
             grid = session.SweepGrid.from_json(grid)
@@ -3389,6 +3438,164 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
     return out
 
 
+def mesh_train_arch(A, configs, case: tuple):
+    """(g)'s config of ``case``: its depth cut and its one shape at the
+    case's batch, sequence length and image side."""
+    name, shape_name, _, depth, batch, seq, img = case
+    arch = configs.get(name, smoke=MESH_SMOKE)
+    cfg = arch.cfg
+    if isinstance(depth, tuple):
+        cfg = dataclasses.replace(cfg, n_double=depth[0], n_single=depth[1])
+    elif depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    shape = arch.shape(shape_name)
+    shape = dataclasses.replace(shape, batch=batch, seq=seq or shape.seq, img=img or shape.img)
+    return dataclasses.replace(arch, cfg=cfg, shapes=(shape,))
+
+
+def mesh_train_state(torch, common, steps, cell, arch, rules=None):
+    """(g)'s train state of ``cell``: drawn from the seed (over ranks, each
+    leaf drawn whole and its slice kept), the attention matrices at their own
+    fan-in, the diffusion models' zero-init leaves drawn."""
+    ts = cell.init_arg(0, SEED, DEVICE)
+    if arch.family in ("lm", "dit", "flux", "vit"):
+        own_fan_in(ts["params"], arch.cfg)
+    if arch.family in ("dit", "flux"):
+        specs = steps.build_cell(arch, arch.shapes[0].name).arg_specs[0]["params"]
+        draw_zero_leaves(common, ts["params"], specs, torch.Generator(device=DEVICE).manual_seed(SEED + 1), rules)
+    return ts
+
+
+def train_sample(t):
+    """Every MESH_TRAIN_STRIDE-th element of a whole leaf in flat order (all
+    of a leaf of at most MESH_TRAIN_WHOLE), in f32 on the host."""
+    flat = t.detach().float().reshape(-1)
+    return (flat if flat.numel() <= MESH_TRAIN_WHOLE else flat[::MESH_TRAIN_STRIDE]).cpu()
+
+
+def sampled_distance(torch, t, want) -> tuple[float, float]:
+    """(||Δ||², ||want||²) over the elements of this rank's part of leaf
+    ``t`` (a DTensor, or a whole tensor) that ``train_sample`` keeps, against
+    ``want``, the whole leaf's ``train_sample``."""
+    from repro_torch.models.common import local, local_slice
+
+    loc = local(t).detach().float()
+    stride = 1 if t.numel() <= MESH_TRAIN_WHOLE else MESH_TRAIN_STRIDE
+    pitch = [math.prod(t.shape[d + 1:]) for d in range(t.dim())]
+    idx = torch.zeros((), dtype=torch.int64, device=loc.device)
+    for d in range(t.dim()):
+        part = local_slice(t, d)[0]
+        idx = idx + (torch.arange(part.start, part.stop, device=loc.device) * pitch[d]).view(
+            [-1 if e == d else 1 for e in range(t.dim())])
+    keep = (idx % stride == 0).expand(loc.shape)
+    got, ref = loc[keep], want.to(loc.device)[idx.expand(loc.shape)[keep] // stride]
+    return float(((got - ref) ** 2).sum()), float((ref * ref).sum())
+
+
+def train_distances(torch, got: list, want: list) -> list[float]:
+    """``sampled_distance`` summed over leaves: [||Δ||², ||want||²]."""
+    sums = [sampled_distance(torch, g, w) for g, w in zip(got, want, strict=True)]
+    return [sum(n for n, _ in sums), sum(d for _, d in sums)]
+
+
+@contextlib.contextmanager
+def train_control(L, lm, R, torch, rules):
+    """(g)'s wrong path.  Where ``data`` splits the batch: the rank at data
+    coordinate 1 leaves its gradient out of every sum over ``data`` (the
+    loss's sum over the batch passes it a zero gradient, its forward value
+    unchanged, so every collective still runs).  Where it does not: the "f"
+    sum over ``model`` of a column-parallel layer's input gradient is left
+    out (``layers.grad_sum`` the identity)."""
+    mesh = rules.mesh
+    if mesh.shape.get("data", 1) > 1:
+        real = R.all_sum
+        dm = mesh.device_mesh
+        dropped = dm.get_coordinate()[dm.mesh_dim_names.index("data")] == 1
+
+        def all_sum(x, m, axes):
+            y = real(x, m, axes)
+            return y.detach() + (y - y.detach()) * 0.0 if dropped and "data" in tuple(axes) else y
+
+        with mock.patch.object(R, "all_sum", all_sum), mock.patch.object(lm, "all_sum", all_sum):
+            yield "a rank's gradient left out of the sum over data"
+    else:
+        with mock.patch.object(L, "grad_sum", lambda x, m, axes: x):
+            yield "the sum over model of a column-parallel input's gradient left out"
+
+
+def train_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
+    """(g) for one MESH_TRAIN ``case`` in this process: on one rank (``rules``
+    None, the parent) or on the ranks of ``rules``' mesh.  The training cell
+    of ``mesh_train_arch`` through ``build_cell(..., rules=rules)``, its
+    state ``mesh_train_state``, SyntheticStream's first batch; with the model
+    modules in f32 (``in_f32``): ``value_and_grad`` and one step; as they run
+    (bf16): ``value_and_grad``, then a timed step.  One rank writes its f32
+    loss, gradients and stepped state (``train_sample``) to ``workdir``; the
+    ranks read them and measure their own shards against them
+    (``sampled_distance``), and run the control (``train_control``) in f32.
+    Returns the loss, distances, ms a step, collectives a step (forward and
+    backward, ``rules.COLLECTIVES``), kernel launches and peak GB."""
+    from repro_torch import arch as A
+    from repro_torch import configs, data, interop
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.npu_matmul import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import common, convnets, diffusion, lm, vision
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.optim import AdamWConfig
+
+    arch = mesh_train_arch(A, configs, case)
+    modules = (lm, diffusion, vision, convnets)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
+    cell = steps.build_cell(arch, arch.shapes[0].name, rules=rules, adamw=AdamWConfig(**MESH_TRAIN_ADAMW))
+    ts = mesh_train_state(torch, common, steps, cell, arch, rules)
+    batch = train_batch(torch, data, arch)
+    if rules is not None:
+        batch = interop.place(batch, cell.arg_specs[1], rules, device=DEVICE)
+    loss_fn, leaves = cell.meta["loss_fn"], common.tree_leaves
+    with in_f32(torch, modules):
+        (loss, _), grads = steps.value_and_grad(loss_fn, ts["params"], ts["state"], batch)
+    out = {"loss": float(loss), "family": arch.family, "n_params": sum(t.numel() for t in leaves(ts["params"]))}
+    path = workdir / f"train_{case[0]}.pt"
+    if rules is None:
+        (_, _), grads16 = steps.value_and_grad(loss_fn, ts["params"], ts["state"], batch)
+        out["bf16"] = grad_distance(grads16, grads)[0]
+        ref = {"loss": out["loss"], "grads": [train_sample(g) for g in grads]}
+        del grads16
+    else:
+        ref = torch.load(path)
+        out["grads"] = train_distances(torch, grads, ref["grads"])
+        with train_control(L, lm, R, torch, rules) as what, in_f32(torch, modules):
+            (_, _), wrong = steps.value_and_grad(loss_fn, ts["params"], ts["state"], batch)
+        out.update(control=train_distances(torch, wrong, ref["grads"]), control_what=what)
+        (_, _), grads16 = steps.value_and_grad(loss_fn, ts["params"], ts["state"], batch)
+        out["bf16"] = train_distances(torch, grads16, ref["grads"])
+        del wrong, grads16
+    del grads
+    with in_f32(torch, modules):
+        ts, metrics = cell(ts, batch)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    groups = {"params": leaves(ts["params"]), "m": leaves(ts["opt"]["m"]), "v": leaves(ts["opt"]["v"]),
+              "state": leaves(ts["state"])}
+    if rules is None:
+        ref["ts"] = {k: [train_sample(t) for t in group] for k, group in groups.items()}
+        torch.save(ref, path)
+    else:
+        out["ts"] = {k: train_distances(torch, group, ref["ts"][k]) for k, group in groups.items() if group}
+    before = dict(R.COLLECTIVES)
+    _, s = timed(torch, lambda: cell(ts, batch))
+    issued = {k: v - before.get(k, 0) for k, v in R.COLLECTIVES.items() if v != before.get(k, 0)}
+    out.update(ms=s * 1e3, collectives={"forward": sum(v for k, v in issued.items() if "/backward" not in k),
+                                        "backward": sum(v for k, v in issued.items() if "/backward" in k)},
+               launches=[ops.int8_matmul.launches - launches0[0], flash_ops.flash_attention.launches - launches0[1]],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0)
+    return out
+
+
 def mesh_rank(rank: int, world: int, workdir: str, settings: dict) -> None:
     """One rank of the mesh phase, in a spawned process: takes the parent's
     ``settings`` (this module's constants, which a rehearsal on the CPU
@@ -3422,7 +3629,7 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.npu_matmul import ops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.sharding import MeshRules, serve_rules
+    from repro_torch.sharding import MeshRules, serve_rules, train_rules
 
     out = {"rank": rank, "device": torch.cuda.current_device() if DEVICE == "cuda" else None}
     if "sweeps" in MESH_PARTS:
@@ -3451,6 +3658,14 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
                                      "seconds": time.perf_counter() - t}
         out["serve_launches"] = [ops.int8_matmul.launches, flash_ops.flash_attention.launches]
         torch.save(tensors, workdir / f"rank{rank}_serve.pt")
+    if "train" in MESH_PARTS:
+        out["train"] = {}
+        for case in MESH_TRAIN:
+            mesh = make_host_mesh(*case[2], device=DEVICE)
+            t = time.perf_counter()
+            r = train_steps(torch, case, workdir, MeshRules(mesh, train_rules(mesh)))
+            out["train"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
+                                     "seconds": time.perf_counter() - t}
     return out
 
 
@@ -3660,6 +3875,55 @@ def check_serve(torch, ranks: list, one: dict, tensors: list) -> dict:
     return report
 
 
+def train_ratio(sums) -> float:
+    """sqrt(||Δ||² / ||want||²) of summed ``train_distances``."""
+    num, den = sums
+    return math.sqrt(num / den) if den else 0.0
+
+
+def check_train(torch, ranks: list, one: dict) -> dict:
+    """(g)'s verdict: per MESH_TRAIN case, no rank launched either kernel;
+    the ranks' coordinates cover the mesh; every rank's loss within
+    TRAIN_LOSS_RTOL of one rank's (``one``, in f32 both); the gradients of
+    ``value_and_grad`` and the stepped params, moments and BatchNorm state
+    on every rank's shards within the case's gradient limit (``grad_limit``:
+    TRAIN_GRAD_RTOL, TRAIN_GRAD_RTOL_BN for ResNet-50) of one rank's, each
+    rank alone and all of them together; the control's gradients beyond it.
+    Returns the report per case."""
+    from repro_torch import arch as A
+    from repro_torch import configs
+
+    report = {}
+    for case in MESH_TRAIN:
+        name, (data, model) = case[0], case[2]
+        ref, rows = one[name], [r["train"][name] for r in ranks]
+        limit = grad_limit(mesh_train_arch(A, configs, case))
+        check(all(m["launches"] == [0, 0] for m in rows), f"mesh (g): {name}: a rank launched a kernel "
+              f"{[m['launches'] for m in rows]}")
+        check(ref["launches"] == [0, 0], f"mesh (g): {name}: one rank launched a kernel {ref['launches']}")
+        check(sorted(tuple(m["coord"]) for m in rows) == [(i, j) for i in range(data) for j in range(model)],
+              f"mesh (g): {name}: the ranks do not cover the ({data}, {model}) mesh")
+        loss = max(abs(m["loss"] - ref["loss"]) / abs(ref["loss"]) for m in rows)
+        check(loss <= TRAIN_LOSS_RTOL, f"mesh (g): {name}'s loss on the ranks differs from one rank's: {loss:.3e} "
+              f"(limit {TRAIN_LOSS_RTOL:g})")
+        total = lambda key: [sum(m[key][i] for m in rows) for i in (0, 1)]  # noqa: E731
+        grads = max([train_ratio(total("grads"))] + [train_ratio(m["grads"]) for m in rows])
+        check(grads <= limit, f"mesh (g): {name}'s gradients on the ranks differ from one rank's: {grads:.3e} "
+              f"(limit {limit:g})")
+        state = {}
+        for group in rows[0]["ts"]:
+            state[group] = max([train_ratio([sum(m["ts"][group][i] for m in rows) for i in (0, 1)])]
+                               + [train_ratio(m["ts"][group]) for m in rows])
+            check(state[group] <= limit, f"mesh (g): {name}'s stepped {group} on the ranks differ from one rank's: "
+                  f"{state[group]:.3e} (limit {limit:g})")
+        control = train_ratio(total("control"))
+        check(control > limit, f"mesh (g): {name}'s control ({rows[0]['control_what']}) lies within the limit "
+              f"({control:.3e}): the check cannot fail")
+        report[name] = {"loss": loss, "grads": grads, "state": state, "control": control, "limit": limit,
+                        "bf16": train_ratio(total("bf16")), "one": ref, "ranks": rows}
+    return report
+
+
 def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> list:
     """MESH_RANKS spawned ranks of the port share the card (see MESH_RANKS):
     every rank's results must equal the goldens and the earlier phases'
@@ -3690,6 +3954,8 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
         if "models" in MESH_PARTS:  # (e) on one rank first: the reference, and the MoE picks to replay
             one = {case[0]: model_steps(torch, case, Path(workdir)) for case in MESH_MODELS}
         one_serve = {case[0]: serve_steps(torch, case) for case in MESH_SERVE} if "serve" in MESH_PARTS else {}
+        one_train = {case[0]: train_steps(torch, case, Path(workdir)) for case in MESH_TRAIN} \
+            if "train" in MESH_PARTS else {}
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
         one_s = time.perf_counter() - one_s
@@ -3723,6 +3989,10 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
             tensors = [torch.load(Path(workdir) / f"rank{r}_serve.pt") for r in range(MESH_RANKS)]
             MESH_REPORT.update(serve_one=one_serve, serve_tensors=tensors, ranks=ranks)
             serve = check_serve(torch, ranks, one_serve, tensors)
+        train = {}
+        if "train" in MESH_PARTS:
+            MESH_REPORT.update(train_one=one_train, ranks=ranks)
+            train = check_train(torch, ranks, one_train)
 
     if "sweeps" in MESH_PARTS:
         large_rows, s1 = ONE_RANK["large"]
@@ -3770,7 +4040,24 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
             f"a step {rows[0]['collectives']} (through sharding.rules, host-staged on the card); peak GB per rank "
             f"{[round(r['peak_gb'], 2) for r in rows]} (one rank {one_m['peak_gb']:.2f}); "
             f"{max(r['seconds'] for r in rows):.1f} s on the ranks")
-    log(f"mesh: one-rank (e) and (f) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
+    for case, m in zip(MESH_TRAIN, train.values()):
+        name, shape, (data, model), depth, batch, seq, _ = case
+        one_m, rows, st = m["one"], m["ranks"], m["state"]
+        cut = "" if depth is None else f", depth {depth}"
+        log(f"mesh (g): {name} {shape} at batch {batch}" + (f", seq {seq}" if seq else "") + cut
+            + f" ({one_m['n_params']} params) on a ({data}, {model}) mesh of {MESH_RANKS} ranks sharing the card "
+            f"({smi}), f32 against one rank's: loss {m['loss']:.3e} (limit {TRAIN_LOSS_RTOL:g}), gradients "
+            f"{m['grads']:.3e}, stepped " + ", ".join(f"{k} {v:.3e}" for k, v in st.items())
+            + f" (limit {m['limit']:g}; leaves over {MESH_TRAIN_WHOLE} elements on every {MESH_TRAIN_STRIDE}-th); "
+            f"control ({rows[0]['control_what']}) {m['control']:.3e}; bf16 as the modules run against one rank's "
+            f"f32: ranks {m['bf16']:.3e}, one rank {one_m['bf16']:.3e} (readings); ms a step (bf16) "
+            f"{max(r['ms'] for r in rows):.2f} on {MESH_RANKS} ranks (slowest, host clock) against "
+            f"{one_m['ms']:.2f} on one; collectives a step {rows[0]['collectives']['forward']} forward, "
+            f"{rows[0]['collectives']['backward']} backward (through sharding.rules, host-staged on the card); "
+            f"kernel launches per rank {[r['launches'] for r in rows]}; peak GB per rank "
+            f"{[round(r['peak_gb'], 2) for r in rows]} (one rank {one_m['peak_gb']:.2f}); "
+            f"{max(r['seconds'] for r in rows):.1f} s on the ranks")
+    log(f"mesh: one-rank (e), (f) and (g) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return ranks
 
@@ -4629,6 +4916,11 @@ def main() -> int:
         return out
 
     smi = phase("environment", lambda: phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE]))
+    if sys.argv[1:2] == ["--mesh-parts"]:  # a rehearsal: the mesh phase alone, these parts of it, no result line
+        globals()["MESH_PARTS"] = tuple(sys.argv[2].split(","))
+        phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
+        log(f"chip_smoke: the mesh phase's {MESH_PARTS} passed in {time.perf_counter() - t0:.1f} s ({walls})")
+        return 0
     agg, gemm_rows, b7_frame = phase("kernels", lambda: phase_kernels(torch, A, configs, common, ops, ref))
     flash_rows = phase("flash", lambda: phase_flash(torch, flash_ops, flash_ref))
     torch.cuda.empty_cache()
@@ -4682,7 +4974,8 @@ def main() -> int:
         check(launches == (0, 0), f"the {name} phase launched a model kernel")
     # The mesh phase's (e) and (f) run model steps: flash launches in this
     # process (the one-rank runs) and in each rank (check_models and
-    # check_serve hold them an attention layer each).
+    # check_serve hold them an attention layer each); (g) trains, and
+    # check_train holds its launches at 0.
     torch.cuda.empty_cache()
     ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
     mesh_ranks = phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
@@ -4690,7 +4983,7 @@ def main() -> int:
     mesh_rank_flash = [r["models_launches"][1] + r["serve_launches"][1] for r in mesh_ranks]
     log(f"mesh: kernel launches (int8_matmul, flash_attention) ({ops.int8_matmul.launches}, {mesh_one}) here (the "
         f"one-rank (e) and (f)), flash {mesh_rank_flash} on the ranks: {[r['models_launches'][1] for r in mesh_ranks]} "
-        f"in (e), {[r['serve_launches'][1] for r in mesh_ranks]} in (f), 0 in (a)-(d)")
+        f"in (e), {[r['serve_launches'][1] for r in mesh_ranks]} in (f), 0 in (a)-(d) and (g)")
     check(ops.int8_matmul.launches == 0, "the mesh phase launched the int8 kernel")
     wall = time.perf_counter() - t0
 

@@ -19,7 +19,10 @@ are f32 or integer (a train state's); numpy has no bf16.
 
 ``restore_resharded`` restores onto a new mesh (an elastic restart): each
 rank reads the same files and keeps its own shards, so placing a leaf
-needs no collective.
+needs no collective.  A tree over ranks (a ruled train state, DTensor
+leaves) saves as one card's would: every rank takes each leaf's whole value
+(``sharding.rules.whole``, the ranks' shards gathered) and the group's rank
+0 writes the files.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..models.common import is_dtensor, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -59,15 +62,41 @@ def _paths(tree: Any, prefix: str = "") -> list[str]:
 def _host(leaf: Any) -> np.ndarray:
     """A leaf as a numpy array that owns its memory: a tensor is copied off
     its device (or, on the CPU, copied), so a later in-place update of the
-    tensor cannot reach the array."""
+    tensor cannot reach the array; a DTensor's whole value, gathered from
+    the ranks (every rank must call this for it)."""
+    if is_dtensor(leaf):
+        from ..sharding.rules import whole
+
+        leaf = whole(leaf.detach())
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 
+def _over_ranks(tree: Any) -> bool:
+    """Whether ``tree`` holds DTensors: then every rank holds the same
+    arrays, and the group's rank 0 alone writes them."""
+    return any(is_dtensor(leaf) for leaf in tree_leaves(tree))
+
+
+def _writes() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str | os.PathLike, step: int, tree: Any, extra: dict | None = None) -> Path:
-    """Atomic synchronous save.  Returns the final checkpoint path."""
+    """Atomic synchronous save.  Returns the final checkpoint path.  A tree
+    over ranks is gathered on every rank and written by rank 0; the others
+    wait for the write at a barrier."""
     base = Path(directory)
+    if _over_ranks(tree):
+        import torch.distributed as dist
+
+        arrays = tree_map(_host, tree)
+        path = save(directory, step, arrays, extra) if _writes() else base / f"step_{step:08d}"
+        dist.barrier()
+        return path
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
     tmp = base / f"step_{step:08d}.tmp"
@@ -187,7 +216,11 @@ class AsyncCheckpointer:
                 self._q.task_done()
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
-        self._q.put((step, tree_map(_host, tree), extra))
+        """Snapshot ``tree`` and queue its write (a tree over ranks: every
+        rank gathers it, rank 0 queues the write)."""
+        host = tree_map(_host, tree)
+        if not _over_ranks(tree) or _writes():
+            self._q.put((step, host, extra))
 
     def wait(self) -> None:
         self._q.join()

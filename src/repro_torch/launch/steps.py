@@ -29,13 +29,19 @@ A ``denoise_step`` cell runs one sampler step of DiT (DDIM, cosine
 schedule) or Flux (rectified-flow Euler) on ``{"x", "t", "dt", ...}``.
 
 With ``rules`` (a ``MeshRules`` over a mesh of ``torch.distributed`` ranks)
-the serving kinds (the LM's ``prefill`` and ``decode``, ``denoise_step``,
-``classify_serve``) run on every rank under ``activation_rules``, as the
+every kind runs on every rank under ``activation_rules``, as the
 reference's ``_with_rules``: ``prog.shardings()`` gives each argument
 leaf's spec, ``prog.init_args`` each rank's slices as DTensors (a leaf
-drawn whole, its slice kept), and the step returns DTensors (logits on
-``vocab``, the cache on its ``kv_seq_axis``, next latents on the batch).
-The training kinds under rules raise, naming their ROADMAP entry.
+drawn whole, its slice kept), and a serving step returns DTensors (logits
+on ``vocab``, the cache on its ``kv_seq_axis``, next latents on the batch).
+A training step over ranks differentiates through ``sharding.rules``'
+collectives (each with its adjoint; FSDP leaves gathered for use and their
+gradients reduce-scattered), sums every other leaf's gradient over the
+batch's mesh axes once, and updates each rank's shards of the train state
+in place, so the state keeps the layout ``prog.shardings()`` gives it.
+With ``accum_steps`` > 1 microbatch ``i`` is rows ``[i·B/a, (i+1)·B/a)`` of
+the global batch laid out again over the batch's axes, as the reference
+cuts it.  The batch must split evenly over those axes.
 """
 from __future__ import annotations
 
@@ -43,14 +49,13 @@ import dataclasses
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 from .. import arch as A
 from ..device import resolve_device
-from ..models import diffusion, lm
-from ..models.common import (ParamSpec, abstract_tree, activation_rules, init_param, init_tree, spec, tree_leaves,
-                             tree_map)
-from ..sharding.rules import MeshRules
+from ..models import diffusion, layers, lm
+from ..models.common import (ParamSpec, abstract_tree, activation_rules, batch_mean, init_param, init_tree, like,
+                             local, local_slice, mesh_of, spec, tree_leaves, tree_map)
+from ..sharding.rules import MeshRules, all_gather, all_sum, batch_axes
 from ..train import optim
 
 
@@ -135,10 +140,6 @@ def _with_rules(rules: MeshRules | None, fn: Callable) -> Callable:
     return wrapped
 
 
-# The ROADMAP entry (§1, "Still to port") that each kind waits for under rules.
-RULES_ENTRY = {"train": "item 8.3", "denoise_train": "item 8.3", "classify_train": "item 8.3"}
-
-
 def _loss_fn(arch: A.Arch, kind: str) -> Callable:
     """``loss_fn(params, state, batch) -> (loss, (metrics, new_state))`` of a
     training kind."""
@@ -166,20 +167,15 @@ def _loss_fn(arch: A.Arch, kind: str) -> Callable:
 
         def loss_fn(params, state, batch):
             logits, new_state = A.classifier_forward(arch, params, state, batch["images"], train=True)
-            logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-            gold = torch.gather(logp, -1, batch["labels"].to(torch.int64)[:, None])
-            loss = -torch.mean(gold)
+            loss = batch_mean(layers.token_nll(logits, batch["labels"]), logits)
             return loss, ({"ce": loss}, new_state)
 
     return loss_fn
 
 
-def value_and_grad(loss_fn, params, state, batch):
-    """(loss, (metrics, new_state)), f32 gradients of ``loss_fn`` at
-    ``params``: differentiated through aliases of the parameters (autograd
-    leaves sharing their storage), so the train state never carries
-    ``requires_grad``.  A parameter the loss does not use gets zeros, as
-    ``jax.grad`` gives."""
+def _local_grads(loss_fn, params, state, batch):
+    """``value_and_grad`` before the gradients' sum over the batch's mesh
+    axes."""
     alias = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, (metrics, new_state) = loss_fn(alias, state, batch)
@@ -188,29 +184,69 @@ def value_and_grad(loss_fn, params, state, batch):
     return (loss.detach(), (tree_map(detach, metrics), tree_map(detach, new_state))), list(grads)
 
 
+def _batch_summed(grads: list, params, batch) -> list:
+    """Over ranks, each gradient summed over the mesh axes that split the
+    batch and not its leaf (a leaf split over them, FSDP, had its gradient
+    reduce-scattered in the backward pass); the gradients as they are on
+    one card."""
+    rows = local_slice(next(iter(batch.values())), 0)[1]
+    if not rows:
+        return grads
+    mesh = mesh_of(next(iter(batch.values())))
+    names = mesh.mesh_dim_names
+    out = []
+    for p, g in zip(tree_leaves(params), grads):
+        held = {names[i] for i, q in enumerate(p.placements) if q.is_shard()}
+        out.append(like(p, all_sum(local(g), mesh, tuple(a for a in rows if a not in held))))
+    return out
+
+
+def value_and_grad(loss_fn, params, state, batch):
+    """(loss, (metrics, new_state)), f32 gradients of ``loss_fn`` at
+    ``params``: differentiated through aliases of the parameters (autograd
+    leaves sharing their storage), so the train state never carries
+    ``requires_grad``.  A parameter the loss does not use gets zeros, as
+    ``jax.grad`` gives.  Over ranks (DTensor arguments) each gradient is
+    laid out as its leaf and is the whole batch's."""
+    (loss, aux), grads = _local_grads(loss_fn, params, state, batch)
+    return (loss, aux), _batch_summed(grads, params, batch)
+
+
+def _microbatches(batch: dict, n: int) -> list[dict]:
+    """``batch`` cut into ``n`` microbatches of consecutive rows of the
+    global batch; over ranks each laid out on the batch's mesh axes as
+    ``batch`` is (its leaves gathered whole first)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in batch.items():
+        held, rows = local_slice(v, 0)
+        whole = all_gather(local(v), 0, mesh_of(v), rows) if rows else v
+        parts, index = v.shape[0] // (held.stop - held.start), held.start // (held.stop - held.start)
+        for i, part in enumerate(whole.reshape(n, whole.shape[0] // n, *whole.shape[1:])):
+            out[i][k] = like(v, part.chunk(parts, 0)[index]) if rows else part
+    return out
+
+
 def _train_step(loss_fn, adamw: optim.AdamWConfig, accum_steps: int) -> Callable:
     def train_step(ts, batch):
         params = ts["params"]
         if accum_steps == 1:
-            (loss, (metrics, new_state)), grads = value_and_grad(loss_fn, params, ts["state"], batch)
+            (loss, (metrics, new_state)), grads = _local_grads(loss_fn, params, ts["state"], batch)
         else:
             # Microbatch over the leading (batch) dim; grads summed in f32, averaged once.
-            micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:]) for k, v in batch.items()}
             new_state, loss, grads = ts["state"], None, None
-            for i in range(accum_steps):
-                (mb_loss, (_, new_state)), g = value_and_grad(loss_fn, params, new_state,
-                                                               {k: v[i] for k, v in micro.items()})
+            for mb in _microbatches(batch, accum_steps):
+                (mb_loss, (_, new_state)), g = _local_grads(loss_fn, params, new_state, mb)
                 if grads is None:
                     loss, grads = mb_loss, g
                 else:
                     loss = loss + mb_loss
                     for a, b in zip(grads, g):
-                        a.add_(b)
+                        local(a).add_(local(b))
             for g in grads:
-                g.div_(accum_steps)
+                local(g).div_(accum_steps)
             loss = loss / accum_steps
             metrics = {}
-        it = iter(grads)
+        it = iter(_batch_summed(grads, params, batch))
         om = optim.adamw_update(adamw, params, tree_map(lambda _: next(it), params), ts["opt"])
         ts["state"] = new_state
         return ts, {"loss": loss, **metrics, **om}
@@ -226,9 +262,6 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
     gradients before one update: the elastic-restart lever that keeps the
     global batch when the data axis shrinks)."""
     shape = arch.shape(shape_name)
-    if rules is not None and shape.kind in RULES_ENTRY:
-        raise NotImplementedError(f"{arch.name}/{shape.name}: the {shape.kind} kind under mesh rules is not ported "
-                                  f"(ROADMAP {RULES_ENTRY[shape.kind]})")
     arch = _shape_cfg(arch, shape)
     cfg = arch.cfg
     param_specs, state_specs = A.abstract_params(arch)
@@ -239,6 +272,12 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
     if shape.kind in ("train", "denoise_train", "classify_train"):
         if shape.batch % accum_steps:
             raise ValueError(f"{name}: batch {shape.batch} does not split into {accum_steps} microbatches")
+        if rules is not None:
+            want = {a for a in batch_axes(rules.mesh) if rules.mesh.shape[a] > 1}
+            got = (rules.logical((shape.batch // accum_steps,), ("batch",)) or (None,))[0]
+            if want != set((got,) if isinstance(got, str) else got or ()):
+                raise ValueError(f"{name}: a microbatch of {shape.batch // accum_steps} rows does not split "
+                                 f"evenly over the batch axes {sorted(want)} of {rules.mesh.shape}")
         zeros = lambda s: ParamSpec(s.shape, s.axes, torch.float32, "zeros")  # noqa: E731
         ts_specs = {
             "params": param_specs,
@@ -248,8 +287,8 @@ def build_cell(arch: A.Arch, shape_name: str, rules=None, adamw: optim.AdamWConf
         }
         loss_fn = _loss_fn(arch, shape.kind)
         step = _train_step(loss_fn, adamw or optim.AdamWConfig(), accum_steps)
-        return CellProgram(name, shape.kind, step, (ts_specs, in_specs), donate=(0,),
-                           meta={**meta, "loss_fn": loss_fn})
+        return CellProgram(name, shape.kind, _with_rules(rules, step), (ts_specs, in_specs), donate=(0,),
+                           meta={**meta, "loss_fn": _with_rules(rules, loss_fn)}, rules=rules)
 
     serve_params = _cast_specs(param_specs, torch.bfloat16)
 

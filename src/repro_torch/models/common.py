@@ -127,9 +127,18 @@ def checkpointed(remat: bool, block: Callable) -> Callable:
     """``block``, checkpointed when ``remat`` and an autograd graph is being
     built (``torch.utils.checkpoint``, non-reentrant): only its inputs are
     kept, and it runs again in the backward pass, as under the reference's
-    ``jax.checkpoint``.  Otherwise ``block`` itself."""
+    ``jax.checkpoint``.  Otherwise ``block`` itself.  The run in the
+    backward pass has the mesh rules that were active in the forward
+    (``activation_rules``), wherever the backward is called from."""
     if not (remat and torch.is_grad_enabled()):
         return block
+    rules = current_rules()
+    if rules is not None:
+        def ruled(*args):
+            with activation_rules(rules):
+                return block(*args)
+
+        return functools.partial(checkpoint, ruled, use_reentrant=False)
     return functools.partial(checkpoint, block, use_reentrant=False)
 
 
@@ -279,6 +288,81 @@ def _from_local(y: torch.Tensor, mesh: Any, placements) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     return DTensor.from_local(y, mesh, placements, run_check=False)
+
+
+def plus(x: Any, y: Any) -> Any:
+    """``x + y`` of two tensors laid out alike, on their local tensors, laid
+    out as ``x`` (a residual add with no DTensor op)."""
+    return like(x, local(x) + local(y))
+
+
+# ---------------------------------------------------------------------------
+# Weights over ranks under autograd (a training step; ``sharding.rules``
+# gives each collective its adjoint).  Under ``train_rules`` a leaf's
+# ``embed`` dim splits over ``data`` (FSDP): ``used_on`` gathers it for use
+# and reduce-scatters its gradient.  A tensor the ranks hold whole that is
+# used on rows split over a mesh axis (a norm's scale on a residual split
+# over its sequence) has a partial gradient on each rank: ``used_on`` sums
+# it over those axes.  The batch axes are left out of that sum: the step
+# sums every leaf's gradient over them once (``launch/steps``).
+# ---------------------------------------------------------------------------
+
+BATCH_AXES = ("pod", "data")
+
+
+def split_axes(x: Any) -> tuple[str, ...]:
+    """The mesh axes that split a dim of DTensor ``x``, the batch axes
+    left out; ``()`` for a plain tensor."""
+    if not is_dtensor(x):
+        return ()
+    names = x.device_mesh.mesh_dim_names
+    return tuple(names[i] for i, p in enumerate(x.placements) if p.is_shard() and names[i] not in BATCH_AXES)
+
+
+def used_on(t: Any, on: Any = None) -> torch.Tensor:
+    """The local tensor of ``t`` (a weight leaf, or an activation held whole
+    over the non-batch axes) for use on the local rows of ``on``: its dims
+    split over the batch axes gathered (their gradient reduce-scattered),
+    and its gradient summed over the axes that split ``on`` but not ``t``.
+    ``t`` itself on one card."""
+    mesh = mesh_of(t) if is_dtensor(t) else mesh_of(on)
+    if mesh is None:
+        return t
+    from ..sharding.rules import all_gather, grad_sum
+
+    y, held = local(t), set()
+    if is_dtensor(t):
+        names = mesh.mesh_dim_names
+        for d in sorted({p.dim for p in t.placements if p.is_shard()}):
+            axes = tuple(names[i] for i, p in enumerate(t.placements) if p.is_shard(d))
+            fsdp = tuple(a for a in axes if a in BATCH_AXES)
+            if fsdp and fsdp != axes:
+                raise ValueError(f"dim {d} of a leaf splits over {axes}: batch and other axes on one dim")
+            if fsdp:
+                y = all_gather(y, d, mesh, fsdp, scatter_grad=True)
+            held.update(axes)
+    if on is None or not (torch.is_grad_enabled() and y.requires_grad):
+        return y
+    return grad_sum(y, mesh, tuple(a for a in split_axes(on) if a not in held))
+
+
+def weights(p: Tree, on: Any = None) -> Tree:
+    """``used_on`` of every leaf of the tree ``p``."""
+    return tree_map(lambda t: used_on(t, on), p)
+
+
+def batch_mean(t: torch.Tensor, ref: Any) -> torch.Tensor:
+    """The mean of every element of ``t``, this rank's rows of a batch laid
+    out on dim 0 as DTensor ``ref``: over the whole batch (one sum over the
+    batch's mesh axes); ``torch.mean(t)`` on one card."""
+    rows = local_slice(ref, 0)[1]
+    if not rows:
+        return torch.mean(t)
+    from ..sharding.rules import all_sum
+
+    mesh = mesh_of(ref)
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in rows)
+    return all_sum(torch.sum(t), mesh, rows) / (t.numel() * n)
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,12 @@ of those channels, a depthwise conv on the rank's own channels; an
 activation split on channels is gathered (``rules.all_gather``) where a
 conv reads it whole.  A leaf whose width the ``model`` extent does not
 divide stays whole, and the activations follow each leaf as it resolves
-(``_laid``).  The logits come back split over ``vocab``.  Only inference
-runs over ranks: a training forward there would need BatchNorm's
-statistics over the whole batch (ROADMAP item 8.3).
+(``_laid``).  The logits come back split over ``vocab``.  A training
+forward over ranks takes BatchNorm's statistics over the whole batch (one
+sum of the ranks' sums over the batch's mesh axes for the mean, one for the
+variance) and writes the running state whole on every rank; under autograd
+a whole tensor cut to the rank's channels has its gradient summed over the
+channels' axes (``rules.grad_sum``).
 """
 from __future__ import annotations
 
@@ -40,9 +43,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..sharding.rules import all_gather
-from .common import (cast, current_matmul, kept, local, local_slice, matmul, mesh_of, on_mesh, rows_like, shard,
-                     spec, stack_specs, tree_map, unstack_tree)
+from ..sharding.rules import all_gather, all_sum, grad_sum
+from .common import (cast, current_matmul, kept, like, local, local_slice, matmul, mesh_of, on_mesh, rows_like, shard,
+                     spec, stack_specs, tree_map, unstack_tree, used_on)
 
 BN_MOMENTUM = 0.9
 
@@ -110,13 +113,27 @@ def bn_state_specs(ch):
     }
 
 
-def batchnorm(p, s, x, train: bool, eps=1e-5):
+def batchnorm(p, s, x, train: bool, eps=1e-5, rows: tuple = (None, ())):
     """Returns (y, new_state); statistics over (batch, H, W) in f32.  In
-    eval the terms drawn from the leaves are ``kept``."""
+    eval the terms drawn from the leaves are ``kept``.  ``rows`` (a
+    ``DeviceMesh`` and the mesh axes that split the batch) makes a training
+    forward's statistics the whole batch's: the mean from the ranks' sums,
+    then the biased variance from their sums of squared deviations from it
+    (two passes, as ``jnp.var``)."""
     x32 = x.to(torch.float32)
-    if train:
+    mesh, axes = rows
+    if train and axes:
+        n = x32.numel() // x32.shape[1] * math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+
+        def total(t):  # the whole batch's sum, used on this rank's rows
+            return grad_sum(all_sum(t.sum(dim=(0, 2, 3)), mesh, axes), mesh, axes)
+
+        mean = total(x32) / n
+        var = total(torch.square(x32 - mean[:, None, None])) / n
+    elif train:
         mean = x32.mean(dim=(0, 2, 3))
         var = x32.var(dim=(0, 2, 3), unbiased=False)
+    if train:
         with torch.no_grad():
             new_s = {
                 "mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean,
@@ -175,27 +192,41 @@ def _laid(x: torch.Tensor, have, want) -> torch.Tensor:
     if have[:2] == want[:2]:
         return x
     x = _gathered(x, have)
-    return x[:, want[0]] if want[1] else x
+    return grad_sum(x, want[2], want[1])[:, want[0]] if want[1] else x
 
 
 def _take(t, part) -> torch.Tensor:
     """The local part of a per-channel leaf (replicated over ranks) at the
-    channels of layout ``part``."""
-    return local(t)[part[0]] if part[1] else local(t)
+    channels of layout ``part`` (its gradient summed over their axes)."""
+    return grad_sum(local(t), part[2], part[1])[part[0]] if part[1] else local(t)
 
 
 def _bn(p, s, x, part, train):
     """``batchnorm`` of ``x`` holding the channels of layout ``part``; on
-    one card (no mesh) the leaves as they are, with no walk of the trees."""
-    if part[2] is not None:
-        p, s = (tree_map(lambda t: _take(t, part), tree) for tree in (p, s))
-    return batchnorm(p, s, x, train)
+    one card (no mesh) the leaves as they are, with no walk of the trees.
+    ``train``: False in eval; over ranks the batch's layout (``_train``),
+    and the new running state is gathered whole, laid out as ``s``."""
+    if part[2] is None:
+        return batchnorm(p, s, x, bool(train))
+    rows = train if isinstance(train, tuple) else (None, ())
+    y, new = batchnorm(*(tree_map(lambda t: _take(t, part), tree) for tree in (p, s)), x, bool(train), rows=rows)
+    if train:
+        new = {k: like(s[k], all_gather(v, 0, part[2], part[1])) for k, v in new.items()}
+    return y, new
+
+
+def _train(images, train: bool):
+    """``train`` as the blocks take it: over ranks in train mode, the
+    batch's layout (its ``DeviceMesh`` and the mesh axes that split its
+    rows), over which BatchNorm takes its statistics."""
+    return (mesh_of(images), local_slice(images, 0)[1]) if train and mesh_of(images) is not None else train
 
 
 def _conv(w, x, stride: int = 1):
     """(``conv`` of whole-channel ``x`` by the rank's output channels of
     ``w``, their layout)."""
-    return conv(local(w), x, stride=stride), _out(w)
+    part = _out(w)
+    return conv(used_on(w), grad_sum(x, part[2], part[1]), stride=stride), part
 
 
 def _conv_bias(p, x, stride: int = 1):
@@ -205,10 +236,8 @@ def _conv_bias(p, x, stride: int = 1):
     return y + _bias(_take(p["b"], part), x), part
 
 
-def _inputs(images, train: bool) -> torch.Tensor:
+def _inputs(images) -> torch.Tensor:
     """The local NCHW bf16 images."""
-    if train and mesh_of(images) is not None:
-        raise NotImplementedError("a training forward over ranks (BatchNorm over the whole batch): ROADMAP item 8.3")
     return local(images).to(torch.bfloat16).permute(0, 3, 1, 2)
 
 
@@ -221,9 +250,9 @@ def _stage_end(x: torch.Tensor, images) -> torch.Tensor:
 def _logits(p, images, h) -> torch.Tensor:
     """The head on pooled whole-channel features ``h``: f32 logits, over
     ranks a DTensor of the rank's ``vocab`` columns."""
-    logits = matmul(h, local(p["w"])) + local(p["b"]).to(h.dtype)
-    return on_mesh(logits.to(torch.float32), mesh_of(images),
-                   {0: local_slice(images, 0)[1], 1: local_slice(p["w"], 1)[1]})
+    vocab = local_slice(p["w"], 1)[1]
+    logits = matmul(grad_sum(h, mesh_of(p["w"]), vocab), used_on(p["w"])) + local(p["b"]).to(h.dtype)
+    return on_mesh(logits.to(torch.float32), mesh_of(images), {0: local_slice(images, 0)[1], 1: vocab})
 
 
 # ---------------------------------------------------------------------------
@@ -304,11 +333,11 @@ def _bottleneck(p, s, x, stride, train):
 def _restack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _restack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return like(trees[0], torch.stack([local(t) for t in trees]))
 
 
 def resnet_forward(c: ResNetConfig, params, state, images, *, train: bool = False):
-    x = _inputs(images, train)
+    x, train = _inputs(images), _train(images, train)
     ns: dict = {"stem": {}}
     x, part = _conv(params["stem"]["conv"], x, stride=2)
     x, ns["stem"]["bn"] = _bn(params["stem"]["bn"], state["stem"]["bn"], x, part, train)
@@ -449,7 +478,7 @@ def _mbconv(p, s, x, stride, train):
 
 
 def effnet_forward(c: EfficientNetConfig, params, state, images, *, train: bool = False):
-    x = _inputs(images, train)
+    x, train = _inputs(images), _train(images, train)
     ns: dict = {"stem": {}, "head_conv": {}}
     x, part = _conv(params["stem"]["conv"], x, stride=2)
     x, ns["stem"]["bn"] = _bn(params["stem"]["bn"], state["stem"]["bn"], x, part, train)
@@ -520,7 +549,7 @@ def _fire(p, x):
 
 
 def squeezenet_forward(c: SqueezeNetConfig, params, state, images, *, train: bool = False):
-    x = _inputs(images, train)
+    x = _inputs(images)
     x, part = _conv_bias(params["stem"], x, stride=2)
     x = _gathered(F.relu(x), part)
     for gi, group in enumerate(FIRE_CFG):

@@ -37,7 +37,10 @@ attention or MLP reads it, the row-parallel partials summed and cut back
 to the rank's rows (one sum for a single block's attention and MLP
 together).  Flux's text stream stays whole on ``model``.  The reference's
 ``_pin_replicated`` only steers its partitioner; here each rank attends
-over its own heads.  On one card every ``shard`` is the identity.
+over its own heads.  On one card every ``shard`` is the identity.  A
+training step over ranks (``train_rules``) runs the same code under
+autograd: the weights' ``embed`` dims gathered (``common.used_on``), the
+losses the global batch's means (``common.batch_mean``).
 """
 from __future__ import annotations
 
@@ -48,10 +51,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from ..sharding.rules import all_gather
+from ..sharding.rules import all_gather, grad_sum
 from . import layers as L
-from .common import (checkpointed, like, local, local_slice, mesh_of, rows_like, shard, spec, stack_specs, tree_map,
-                     unstack_tree)
+from .common import (batch_mean, checkpointed, like, local, local_slice, mesh_of, rows_like, shard, spec, stack_specs,
+                     unstack_tree, used_on, weights)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -171,14 +174,14 @@ def _unpatchify(x, p, h, w, c_out):
 
 def _res(x, g, y):
     """The gated residual ``x + g·y`` (g [B, D] a row), laid out as ``x``."""
-    return like(x, local(x) + local(g)[:, None, :] * local(y))
+    return like(x, local(x) + used_on(g, x)[:, None, :] * local(y))
 
 
 def _linear(p, x):
-    """``x @ w + b`` of a replicated (``embed``-less) projection on the
-    local rows of ``x``."""
-    xl = local(x)
-    return xl @ local(p["w"]).to(xl.dtype) + local(p["b"]).to(xl.dtype)
+    """``x @ w + b`` on the local rows of ``x``, its input dim whole (the
+    weights as ``common.used_on`` gives them)."""
+    xl, lp = local(x), weights(p, x)
+    return xl @ lp["w"].to(xl.dtype) + lp["b"].to(xl.dtype)
 
 
 def _mod(p, cond, n):
@@ -186,8 +189,9 @@ def _mod(p, cond, n):
     ranks ``w``'s columns split over ``mlp``: each rank makes its columns
     and they are gathered whole before the chunks are cut, as the chunks'
     boundaries do not fall on the ranks'."""
-    m = _linear(p, cond)
-    return torch.chunk(all_gather(m, -1, mesh_of(p["w"]), local_slice(p["w"], 1)[1]), n, dim=-1)
+    mesh, axes = mesh_of(p["w"]), local_slice(p["w"], 1)[1]
+    m = _linear(p, grad_sum(cond, mesh, axes))
+    return torch.chunk(all_gather(m, -1, mesh, axes), n, dim=-1)
 
 
 def _dit_block(c: DiTConfig, p, x, cond):
@@ -210,7 +214,7 @@ def dit_forward(c: DiTConfig, params, x_t, t, y):
     x = shard(rows_like(x_t, x), "batch", None, None)
 
     temb = L.mlp(params["t_embed"], rows_like(t, timestep_embedding(local(t), 256).to(torch.bfloat16)), act=F.silu)
-    yemb = local(params["y_embed"]).to(torch.bfloat16)[local(y)]
+    yemb = used_on(params["y_embed"]).to(torch.bfloat16)[local(y)]
     cond = F.silu(local(temb) + yemb)
 
     block = checkpointed(c.remat, _dit_block)
@@ -224,13 +228,15 @@ def dit_forward(c: DiTConfig, params, x_t, t, y):
 
 
 def dit_train_loss(c: DiTConfig, params, x0, t, y, noise):
-    """DDPM eps-prediction MSE at cosine-schedule timestep t in [0,1]."""
-    a = torch.cos(0.5 * math.pi * t).to(torch.float32)[:, None, None, None]
-    s = torch.sin(0.5 * math.pi * t).to(torch.float32)[:, None, None, None]
-    x_t = a * x0 + s * noise
-    pred = dit_forward(c, params, x_t, t * 1000.0, y)
-    eps = pred[..., : c.in_ch]
-    return torch.mean((eps - noise) ** 2), {}
+    """DDPM eps-prediction MSE at cosine-schedule timestep t in [0,1]; over
+    ranks on the local rows, the mean the global batch's."""
+    tl, nl = local(t), local(noise)
+    a = torch.cos(0.5 * math.pi * tl).to(torch.float32)[:, None, None, None]
+    s = torch.sin(0.5 * math.pi * tl).to(torch.float32)[:, None, None, None]
+    x_t = rows_like(x0, a * local(x0) + s * nl)
+    pred = dit_forward(c, params, x_t, rows_like(t, tl * 1000.0), y)
+    eps = local(pred)[..., : c.in_ch]
+    return batch_mean((eps - nl) ** 2, x0), {}
 
 
 @torch.no_grad()
@@ -346,18 +352,20 @@ def _joint_attention(c: FluxConfig, p_img, p_txt, img, txt, onto=None):
     on the rank's heads: the text output summed whole, the image output
     summed and cut to ``onto``'s rows (the image residual's)."""
     ac = c.attn_cfg()
-    mesh, lpi, lpt = mesh_of(img), tree_map(local, p_img), tree_map(local, p_txt)
-    qi, ki, vi = L._qkv(ac, lpi, local(img), None)  # no rope: positions unused
-    qt, kt, vt = L._qkv(ac, lpt, local(txt), None)
+    mesh = mesh_of(img)
+    qi, ki, vi = L._heads_in(ac, p_img, img, None)  # no rope: positions unused
+    qt, kt, vt = L._heads_in(ac, p_txt, txt, None)
     q = torch.cat([qt, qi], dim=1)
     k = torch.cat([kt, ki], dim=1)
     v = torch.cat([vt, vi], dim=1)
     out = L._attend(ac, q, k, v)
     T, dtype, axes = qt.shape[1], qt.dtype, local_slice(p_img["wq"], 1)[1]
     ot, oi = out[:, :T], out[:, T:]
-    yi = L._summed(L._partial("bshk,hkd->bsd", oi, lpi["wo"], axes), mesh, axes, dtype, onto) + lpi["bo"].to(dtype)
-    yt = L._summed(L._partial("bshk,hkd->bsd", ot, lpt["wo"], axes), mesh, axes, dtype) + lpt["bo"].to(dtype)
-    return like(img if onto is None else onto, yi), like(txt, yt)
+    rows = img if onto is None else onto
+    yi = L._summed(L._partial("bshk,hkd->bsd", oi, used_on(p_img["wo"], img), axes), mesh, axes, dtype, onto)
+    yt = L._summed(L._partial("bshk,hkd->bsd", ot, used_on(p_txt["wo"], txt), axes), mesh, axes, dtype)
+    yi = yi + used_on(p_img["bo"], rows).to(dtype)
+    return like(rows, yi), like(txt, yt + used_on(p_txt["bo"], txt).to(dtype))
 
 
 def _double_block(c: FluxConfig, p, img, txt, vec):
@@ -381,18 +389,19 @@ def _single_block(c: FluxConfig, p, x, vec):
     sh, sc, g = _mod(p["mod"], vec, 3)
     h = shard(L.modulate(L.layernorm(p["ln"], x), sh, sc), "batch", None, None)
     ac = c.attn_cfg()
-    mesh, hl, lp = mesh_of(x), local(h), tree_map(local, p)
-    q, k, v = L._qkv(ac, lp["attn"], hl, None)
+    mesh, hl, pa = mesh_of(x), local(h), p["attn"]
+    q, k, v = L._heads_in(ac, pa, h, None)
     o = L._attend(ac, q, k, v)
-    head_axes, mlp_axes = local_slice(p["attn"]["wq"], 1)[1], local_slice(p["mlp_in"], 1)[1]
-    a = L._partial("bshk,hkd->bsd", o, lp["attn"]["wo"], head_axes)
-    f = L._partial("...f,fd->...d", L._gelu(hl @ lp["mlp_in"].to(hl.dtype)), lp["mlp_out"], mlp_axes)
+    head_axes, mlp_axes = local_slice(pa["wq"], 1)[1], local_slice(p["mlp_in"], 1)[1]
+    a = L._partial("bshk,hkd->bsd", o, used_on(pa["wo"], h), head_axes)
+    hidden = L._gelu(grad_sum(hl, mesh, mlp_axes) @ used_on(p["mlp_in"], h).to(hl.dtype))
+    f = L._partial("...f,fd->...d", hidden, used_on(p["mlp_out"], h), mlp_axes)
     # attn and MLP share the residual: one sum of their partials onto x's rows, one reshard
     if head_axes == mlp_axes:
         af = L._summed(a + f, mesh, head_axes, hl.dtype, x)
     else:
         af = L._summed(a, mesh, head_axes, hl.dtype, x) + L._summed(f, mesh, mlp_axes, hl.dtype, x)
-    return shard(_res(x, g, af + lp["attn"]["bo"].to(hl.dtype)), "batch", "act_seq", None)
+    return shard(_res(x, g, af + used_on(pa["bo"], x).to(hl.dtype)), "batch", "act_seq", None)
 
 
 def flux_forward(c: FluxConfig, params, img_lat, txt, vec, t, guidance=None):
@@ -433,12 +442,14 @@ def flux_forward(c: FluxConfig, params, img_lat, txt, vec, t, guidance=None):
 
 
 def flux_train_loss(c: FluxConfig, params, x0, txt, vec, t, noise):
-    """Rectified-flow v-prediction: x_t = (1-t) x0 + t eps, v* = eps - x0."""
-    tt = t.to(torch.float32)[:, None, None, None]
-    x_t = (1 - tt) * x0 + tt * noise
-    g = torch.full(t.shape, 4.0, dtype=torch.float32, device=t.device) if c.guidance else None
+    """Rectified-flow v-prediction: x_t = (1-t) x0 + t eps, v* = eps - x0;
+    over ranks on the local rows, the mean the global batch's."""
+    tl, x0l, nl = local(t), local(x0), local(noise)
+    tt = tl.to(torch.float32)[:, None, None, None]
+    x_t = rows_like(x0, (1 - tt) * x0l + tt * nl)
+    g = rows_like(t, torch.full(tl.shape, 4.0, dtype=torch.float32, device=tl.device)) if c.guidance else None
     v = flux_forward(c, params, x_t, txt, vec, t, g)
-    return torch.mean((v - (noise - x0)) ** 2), {}
+    return batch_mean((local(v) - (nl - x0l)) ** 2, x0), {}
 
 
 @torch.no_grad()

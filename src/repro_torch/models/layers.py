@@ -32,7 +32,11 @@ flash kernel on the rank's own heads; ``attention_decode`` over the rank's cache
 slots, merged across the slots' axes (``_sdpa_split``); ``moe`` on the
 rank's experts.  Every collective goes through ``sharding.rules``.  On
 plain tensors the helpers of ``models.common`` are identities, so the same
-code runs on one card.
+code runs on one card.  Under autograd (a training step over ranks) the
+collectives carry their adjoints (``sharding.rules``), a weight's FSDP dims
+are gathered for use (``common.used_on``), and where an input held whole
+feeds the rank's heads, MLP columns or experts its gradient is summed over
+their axes (``rules.grad_sum``).
 
 On ``meta`` tensors (``launch/dryrun`` sizing a step) ``_attend`` takes the
 reference's branches, the program without the kernel; under
@@ -49,8 +53,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import NEG_INF, blockwise_sdpa
-from ..sharding.rules import all_gather, all_max, all_sum
-from .common import like, local, local_slice, mesh_of, on_mesh, spec, tree_map
+from ..sharding.rules import all_gather, all_max, all_sum, grad_sum
+from .common import like, local, local_slice, mesh_of, on_mesh, spec, tree_map, used_on, weights
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -62,10 +66,13 @@ def rmsnorm_specs(dim: int, axis: str = "embed") -> dict:
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
-    x32 = x.to(torch.float32)
+    """Over ranks (a DTensor ``x``, its last dim whole) on the local rows,
+    the scale as ``common.used_on`` gives it."""
+    xl = local(x)
+    x32 = xl.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+    return like(x, (y * used_on(params["scale"], x).to(torch.float32)).to(xl.dtype))
 
 
 def layernorm_specs(dim: int, axis: str = "embed") -> dict:
@@ -75,7 +82,7 @@ def layernorm_specs(dim: int, axis: str = "embed") -> dict:
 def layernorm(params, x, eps: float = 1e-6):
     """Normalizes in f32 (population variance, as ``jnp.var``), casts back.
     A DTensor ``x`` (its last dim whole) is normalized on its local rows."""
-    xl, lp = local(x), tree_map(local, params)
+    xl, lp = local(x), weights(params, x)
     x32 = xl.to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
@@ -86,7 +93,7 @@ def layernorm(params, x, eps: float = 1e-6):
 def modulate(x, shift, scale):
     """adaLN modulation (DiT): x [B,S,D], shift/scale [B,D] (over ranks:
     the rows of x's local batch, whole on D)."""
-    return like(x, local(x) * (1.0 + local(scale)[:, None, :]) + local(shift)[:, None, :])
+    return like(x, local(x) * (1.0 + used_on(scale, x)[:, None, :]) + used_on(shift, x)[:, None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -145,19 +152,19 @@ def attention_specs(c: AttnCfg) -> dict:
     return s
 
 
-def _qkv(c: AttnCfg, p, x, positions):
-    """q, k, v [B,S,H,hd] of x [B,S,D]; over ranks (a DTensor x) the rank's
-    heads of each, as DTensors split on batch as x and on heads as the
-    weights."""
+def _qkv(c: AttnCfg, p, x, positions, xkv=None):
+    """q, k, v [B,S,H,hd] of x [B,S,D] (k and v of ``xkv`` where given);
+    over ranks (a DTensor x) the rank's heads of each, as DTensors split on
+    batch as x and on heads as the weights."""
     if mesh_of(x) is not None:
-        lp = tree_map(local, p)
-        qkv = _qkv(c, lp, local(x), local(positions))
+        qkv = _heads_in(c, p, x, local(positions))
         batch = local_slice(x, 0)[1]
         return tuple(on_mesh(t, mesh_of(x), {0: batch, 2: local_slice(p[w], 1)[1]})
                      for t, w in zip(qkv, ("wq", "wk", "wv")))
+    xkv = x if xkv is None else xkv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(x.dtype))
     if c.bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -169,6 +176,23 @@ def _qkv(c: AttnCfg, p, x, positions):
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
     return q, k, v
+
+
+def _heads_in(c: AttnCfg, p, x, positions):
+    """Local q, k, v of the rank's heads of ``x`` (whole on the heads' mesh
+    axes), from the attention's weight leaves ``p`` (``wo``, ``bo`` unused)
+    as ``common.used_on`` gives them.  Under autograd x's gradient is summed
+    over the axes that split ``wq``'s heads (for q) and ``wk``'s (for k and
+    v), the norms' scales over the same."""
+    mesh, xl = mesh_of(x), local(x)
+    lp = weights({k: t for k, t in p.items() if k not in ("wo", "bo")}, x)
+    if mesh is None:
+        return _qkv(c, lp, xl, positions)
+    q_axes, kv_axes = local_slice(p["wq"], 1)[1], local_slice(p["wk"], 1)[1]
+    for name, axes in (("q_norm", q_axes), ("k_norm", kv_axes)):
+        if name in lp:
+            lp[name] = {"scale": grad_sum(lp[name]["scale"], mesh, axes)}
+    return _qkv(c, lp, grad_sum(xl, mesh, q_axes), positions, xkv=grad_sum(xl, mesh, kv_axes))
 
 
 def _sdpa(c: AttnCfg, q, k, v, mask=None):
@@ -264,32 +288,38 @@ def _summed(y, mesh, axes, dtype, onto=None):
     """The ranks' partials ``y`` summed over the mesh ``axes`` in ``y``'s
     dtype, then cast to ``dtype``; ``y`` itself where nothing splits.  With
     ``onto`` (a residual DTensor split over its sequence, dim 1) only this
-    rank's rows of the sum along dim 1, as ``onto`` holds them."""
+    rank's rows of the sum along dim 1, as ``onto`` holds them (under
+    autograd their gradient summed over the rows' axes before the cut)."""
     rows, row_axes = local_slice(onto, 1) if onto is not None else (None, ())
     y = all_sum(y, mesh, axes).to(dtype) if axes else y
-    return y[:, rows] if row_axes else y
+    return grad_sum(y, mesh, row_axes)[:, rows] if row_axes else y
 
 
-def attention(c: AttnCfg, p, x, *, positions=None, mask=None):
+def attention(c: AttnCfg, p, x, *, positions=None, mask=None, onto=None):
     """Full (training/prefill) attention. x: [B,S,D] -> (y [B,S,D], (k, v)).
 
     Over ranks: each rank projects its own heads (``wq``/``wk``/``wv``
     column-parallel), attends over them, and ``wo``'s row-parallel partial
-    sums meet in one sum over the heads' mesh axes; (k, v) come back as
-    DTensors of the rank's KV heads."""
-    mesh, xl, lp = mesh_of(x), local(x), tree_map(local, p)
+    sums meet in one sum over the heads' mesh axes (with ``onto``, a
+    residual split over its sequence, cut to its rows and laid out as it);
+    (k, v) come back as DTensors of the rank's KV heads."""
+    mesh, xl = mesh_of(x), local(x)
     B, S, _ = xl.shape
     if positions is None:
         positions = torch.arange(S, device=xl.device)[None, :].expand(B, S)
-    q, k, v = _qkv(c, lp, xl, local(positions))
+    q, k, v = _heads_in(c, p, x, local(positions))
     heads, head_axes = local_slice(p["wq"], 1)
     kv_heads, kv_axes = local_slice(p["wk"], 1)
-    out = _attend(c, q, *_kv_for_heads(k, v, heads, kv_heads, c.n_heads // c.n_kv_heads), mask)
-    y = _summed(_partial("bshk,hkd->bsd", out, lp["wo"], head_axes), mesh, head_axes, xl.dtype)
+    # Where the query heads split over an axis the KV heads do not, each rank reads its own share of k and v.
+    shared = tuple(a for a in head_axes if a not in kv_axes)
+    kv = _kv_for_heads(grad_sum(k, mesh, shared), grad_sum(v, mesh, shared), heads, kv_heads,
+                       c.n_heads // c.n_kv_heads)
+    out = _attend(c, q, *kv, mask)
+    y = _summed(_partial("bshk,hkd->bsd", out, used_on(p["wo"], x), head_axes), mesh, head_axes, xl.dtype, onto)
     if c.bias:
-        y = y + lp["bo"].to(xl.dtype)
+        y = y + used_on(p["bo"], x if onto is None else onto).to(xl.dtype)
     batch = local_slice(x, 0)[1]
-    return like(x, y), tuple(on_mesh(t, mesh, {0: batch, 2: kv_axes}) for t in (k, v))
+    return like(x if onto is None else onto, y), tuple(on_mesh(t, mesh, {0: batch, 2: kv_axes}) for t in (k, v))
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -404,6 +434,26 @@ def attention_decode(
     return like(x, y), cache_k, cache_v
 
 
+def token_nll(logits, labels):
+    """-log softmax(logits)[label] in f32 for each row of ``logits`` [..., V]
+    (``labels`` [...] int; a label < 0 reads class 0, for the caller to
+    mask).  Over ranks ``logits`` is a DTensor that may split its classes
+    (``vocab``): the logsumexp from the ranks' max and one sum, the gold
+    logit from the rank that holds the label's class, one sum; the local
+    rows of the result, whole on every rank of the classes' axes."""
+    ll = local(logits).to(torch.float32)
+    lab = local(labels).to(torch.int64).clamp(min=0)
+    cols, axes = local_slice(logits, logits.dim() - 1)
+    if not axes:
+        return torch.logsumexp(ll, dim=-1) - torch.gather(ll, -1, lab[..., None])[..., 0]
+    mesh = mesh_of(logits)
+    m = all_max(ll.detach().amax(dim=-1, keepdim=True), mesh, axes)
+    lse = m[..., 0] + torch.log(all_sum(torch.exp(ll - m).sum(dim=-1), mesh, axes))
+    own = (lab >= cols.start) & (lab < cols.stop)
+    gold = torch.gather(ll, -1, (lab - cols.start).clamp(0, ll.shape[-1] - 1)[..., None])[..., 0]
+    return lse - all_sum(torch.where(own, gold, 0.0), mesh, axes)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -423,12 +473,13 @@ def _swiglu_hidden(p, x):
     return F.silu(g) * u
 
 
-def swiglu(p, x):
+def swiglu(p, x, onto=None):
     """Over ranks: column-parallel ``w_gate``/``w_up``, row-parallel
-    ``w_down`` on the rank's MLP slice, one sum."""
-    xl, lp, axes = local(x), tree_map(local, p), local_slice(p["w_gate"], 1)[1]
-    y = _partial("...f,fd->...d", _swiglu_hidden(lp, xl), lp["w_down"], axes)
-    return like(x, _summed(y, mesh_of(x), axes, xl.dtype))
+    ``w_down`` on the rank's MLP slice, one sum (onto ``onto``'s rows, as
+    ``mlp``)."""
+    mesh, xl, lp, axes = mesh_of(x), local(x), weights(p, x), local_slice(p["w_gate"], 1)[1]
+    y = _partial("...f,fd->...d", _swiglu_hidden(lp, grad_sum(xl, mesh, axes)), lp["w_down"], axes)
+    return like(x if onto is None else onto, _summed(y, mesh, axes, xl.dtype, onto))
 
 
 def mlp_specs(d_model: int, d_ff: int, out_dim: int | None = None) -> dict:
@@ -450,11 +501,12 @@ def mlp(p, x, act=_gelu, onto=None):
     """Over ranks: column-parallel ``w1``, row-parallel ``w2``, one sum,
     then ``b2``.  With ``onto`` (a residual split over its sequence) the
     sum lands on ``onto``'s rows and the output is laid out as ``onto``."""
-    xl, lp = local(x), tree_map(local, p)
-    h = act(torch.einsum("...d,df->...f", xl, lp["w1"].to(xl.dtype)) + lp["b1"].to(xl.dtype))
-    axes = local_slice(p["w1"], 1)[1]
-    y = _summed(_partial("...f,fd->...d", h, lp["w2"], axes), mesh_of(x), axes, xl.dtype, onto)
-    return like(x if onto is None else onto, y + lp["b2"].to(xl.dtype))
+    mesh, xl, axes = mesh_of(x), local(x), local_slice(p["w1"], 1)[1]
+    lp = weights({k: p[k] for k in ("w1", "b1", "w2")}, x)
+    h = act(torch.einsum("...d,df->...f", grad_sum(xl, mesh, axes), lp["w1"].to(xl.dtype)) + lp["b1"].to(xl.dtype))
+    y = _summed(_partial("...f,fd->...d", h, lp["w2"], axes), mesh, axes, xl.dtype, onto)
+    out = x if onto is None else onto
+    return like(out, y + used_on(p["b2"], out).to(xl.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -528,7 +580,7 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe(c: MoECfg, p, x):
+def moe(c: MoECfg, p, x, onto=None):
     """x: [B, S, D] -> ([B, S, D], aux loss).  Gather-based capacity dispatch:
 
       router -> top-k -> per-batch-row sort-derived slot plan -> gather tokens
@@ -544,16 +596,21 @@ def moe(c: MoECfg, p, x):
     buffer sharded on E): the router's logits are gathered, every rank
     routes alike, runs its own experts' slots and scatter-adds them onto the
     tokens, and the partial outputs meet in one sum (the reference's psum
-    formulation), the shared experts' row-parallel partials with them.
+    formulation), the shared experts' row-parallel partials with them
+    (onto ``onto``'s rows, as ``mlp``).  Under autograd the tokens' and
+    routing weights' gradients are summed over the axes that split the
+    experts (``layers.grad_sum``), and the aux loss's means are the global
+    batch's.
     """
-    mesh, xl, lp = mesh_of(x), local(x), tree_map(local, p)
+    mesh, xl, lp = mesh_of(x), local(x), weights(p, x)
     B, S, D = xl.shape
     K, E = c.top_k, c.n_experts
     N = S * K
     capacity = int(max(1, round(N / E * c.capacity_factor)))
 
-    logits = torch.einsum("bsd,de->bse", xl, lp["router"].to(xl.dtype)).to(torch.float32)
-    logits = all_gather(logits, 2, mesh, local_slice(p["router"], 1)[1])
+    router_axes = local_slice(p["router"], 1)[1]
+    logits = torch.einsum("bsd,de->bse", grad_sum(xl, mesh, router_axes), lp["router"].to(xl.dtype))
+    logits = all_gather(logits.to(torch.float32), 2, mesh, router_axes)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = _top_k(probs, K)  # [B, S, K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -563,20 +620,21 @@ def moe(c: MoECfg, p, x):
     # token_idx: [B, E, C] flat indices into S*K; the source token is i // K.
     # This rank runs the slots of its experts (all of them on one card).
     experts, expert_axes = local_slice(p["experts"]["w_gate"], 0)
+    axes = expert_axes + local_slice(p["experts"]["w_gate"], 2)[1]  # an expert's MLP splits where E cannot
     token_idx, slot_valid = token_idx[:, experts], slot_valid[:, experts]
     n_local = token_idx.shape[1]
     src_tok = (token_idx // K).reshape(B, n_local * capacity)
-    buf = xl.gather(1, src_tok[..., None].expand(B, n_local * capacity, D)).reshape(B, n_local, capacity, D)
-    buf = buf.masked_fill(~slot_valid[..., None], 0.0).transpose(0, 1)  # [E, B, C, D]
+    buf = grad_sum(xl, mesh, axes).gather(1, src_tok[..., None].expand(B, n_local * capacity, D))
+    buf = buf.reshape(B, n_local, capacity, D).masked_fill(~slot_valid[..., None], 0.0).transpose(0, 1)  # [E, B, C, D]
 
     w = lp["experts"]
-    axes = expert_axes + local_slice(p["experts"]["w_gate"], 2)[1]  # an expert's MLP splits where E cannot
     g = torch.einsum("ebcd,edf->ebcf", buf, w["w_gate"].to(buf.dtype))
     u = torch.einsum("ebcd,edf->ebcf", buf, w["w_up"].to(buf.dtype))
     out_buf = _partial("ebcf,efd->ebcd", F.silu(g) * u, w["w_down"], axes)
 
     # slot weight: the routing weight of the token occupying slot (b, e, c).
-    slot_w = top_w.reshape(B, N).gather(1, token_idx.reshape(B, -1)).reshape(B, n_local, capacity)
+    slot_w = grad_sum(top_w, mesh, axes).reshape(B, N).gather(1, token_idx.reshape(B, -1))
+    slot_w = slot_w.reshape(B, n_local, capacity)
     slot_w = torch.where(slot_valid, slot_w, 0.0)
     upd = out_buf.transpose(0, 1) * slot_w[..., None].to(out_buf.dtype)  # [B, E, C, D]
     rows = (torch.arange(B, device=xl.device)[:, None] * S + src_tok).reshape(-1)
@@ -585,12 +643,13 @@ def moe(c: MoECfg, p, x):
 
     if c.n_shared > 0:
         shared_axes = local_slice(p["shared"]["w_gate"], 1)[1]
-        shared = _partial("...f,fd->...d", _swiglu_hidden(lp["shared"], xl), lp["shared"]["w_down"], shared_axes)
+        hidden = _swiglu_hidden(lp["shared"], grad_sum(xl, mesh, shared_axes))
+        shared = _partial("...f,fd->...d", hidden, lp["shared"]["w_down"], shared_axes)
         if shared_axes != axes:
             y, shared = _summed(y, mesh, axes, xl.dtype), _summed(shared, mesh, shared_axes, xl.dtype)
             axes = ()
         y = y + shared
-    y = _summed(y, mesh, axes, xl.dtype)
+    y = _summed(y, mesh, axes, xl.dtype, onto)
 
     # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
     me = probs.mean(dim=(0, 1))  # mean router prob per expert
@@ -600,4 +659,4 @@ def moe(c: MoECfg, p, x):
     if batch_axes:  # the global batch's means: the mean of the ranks' (equal batches)
         me, ce = (all_sum(torch.cat([me, ce]), mesh, batch_axes) / (x.shape[0] // B)).split(E)
     aux = c.router_aux_weight * E * torch.sum(me * ce)
-    return like(x, y), aux
+    return like(x if onto is None else onto, y), aux

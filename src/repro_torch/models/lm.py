@@ -17,7 +17,11 @@ sharding points are kept (``_res_shard``, ``_unshard_seq``, the logits on
 ``vocab``, the cache on its ``kv_seq_axis``), and each is a
 ``common.shard``: the identity on one card, an explicit redistribute over
 ranks.  The embedding is looked up on the rank's ``embed_tp`` slice and
-gathered by the first ``_res_shard``.
+gathered by the first ``_res_shard``.  A training step over ranks
+(``train_rules``: ``seq_shard_acts``, FSDP) runs the same code under
+autograd: each sublayer's output reduced onto the residual's rows
+(``onto``), the logits split on ``vocab`` into a vocab-parallel
+cross-entropy (``layers.token_nll``), its masked mean the global batch's.
 
 Prefill attention goes through ``layers.attention``, so on the card every
 layer launches the flash kernel (causal); decode keeps the reference's
@@ -35,9 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..sharding.rules import all_sum, grad_sum
 from . import layers as L
-from .common import (checkpointed, current_rules, like, local, local_slice, mesh_of, on_mesh, shard, spec,
-                     stack_specs, tree_map, unstack, unstack_tree)
+from .common import (checkpointed, current_rules, like, local, local_slice, mesh_of, on_mesh, plus, shard, spec,
+                     stack_specs, tree_map, unstack, unstack_tree, used_on)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,18 +110,19 @@ def abstract_params(c: LMConfig) -> dict:
     }
 
 
-def _ffn(c: LMConfig, blk, h):
-    """The block's second sublayer: (output, MoE aux loss or 0)."""
+def _ffn(c: LMConfig, blk, h, onto=None):
+    """The block's second sublayer: (output, MoE aux loss or 0), onto the
+    rows of ``onto`` (``layers.mlp``)."""
     if c.moe is not None:
-        return L.moe(c.moe, blk["moe"], h)
-    return L.swiglu(blk["ffn"], h), 0.0
+        return L.moe(c.moe, blk["moe"], h, onto)
+    return L.swiglu(blk["ffn"], h, onto), 0.0
 
 
 def _embed(params, tokens):
     """The rows of ``tokens``; over ranks, of the rank's ``embed_tp`` slice
     (the lookup stays local), laid out batch as ``tokens``."""
     emb = params["embed"]
-    x = local(emb).to(torch.bfloat16)[local(tokens)]
+    x = used_on(emb).to(torch.bfloat16)[local(tokens)]
     return on_mesh(x, mesh_of(emb), {0: local_slice(tokens, 0)[1], 2: local_slice(emb, 1)[1]})
 
 
@@ -126,19 +132,25 @@ def _res_shard(c: LMConfig, x):
 
 def _unshard_seq(c: LMConfig, h):
     """Megatron-SP gather point: with seq-sharded residuals, the full
-    sequence once per sublayer, where gathering x is cheaper than gathering
-    K and V (2 * n_kv * head_dim >= d_model), as the reference."""
-    if c.seq_shard_acts and 2 * c.n_kv_heads * c.hd >= c.d_model:
+    sequence once per sublayer.  The reference gathers x here where that is
+    cheaper than gathering K and V (2 * n_kv * head_dim >= d_model) and
+    otherwise leaves its partitioner to gather K and V inside the attention
+    (and the tokens inside the MoE's routing, which needs whole rows); the
+    port gathers x at every sublayer, so that each rank computes on its own
+    heads, MLP columns or experts over the whole sequence.  The values are
+    the same either way."""
+    if c.seq_shard_acts:
         return shard(h, "batch", None, None)
     return h
 
 
 def _block(c: LMConfig, blk, x):
-    """One layer over the whole sequence: (x, its (k, v), MoE aux loss)."""
-    a, kv = L.attention(c.attn_cfg(), blk["attn"], _unshard_seq(c, L.rmsnorm(blk["ln1"], x, c.norm_eps)))
-    x = _res_shard(c, x + a)
-    f, aux = _ffn(c, blk, _unshard_seq(c, L.rmsnorm(blk["ln2"], x, c.norm_eps)))
-    return _res_shard(c, x + f), kv, aux
+    """One layer over the whole sequence: (x, its (k, v), MoE aux loss).
+    Each sublayer's output lands on the residual's rows."""
+    a, kv = L.attention(c.attn_cfg(), blk["attn"], _unshard_seq(c, L.rmsnorm(blk["ln1"], x, c.norm_eps)), onto=x)
+    x = _res_shard(c, plus(x, a))
+    f, aux = _ffn(c, blk, _unshard_seq(c, L.rmsnorm(blk["ln2"], x, c.norm_eps)), onto=x)
+    return _res_shard(c, plus(x, f)), kv, aux
 
 
 def _block_train(c: LMConfig, blk, x):
@@ -159,22 +171,30 @@ def forward(c: LMConfig, params, tokens):
 
 
 def logits_fn(c: LMConfig, params, hidden):
-    """Over ranks each rank's ``vocab`` slice, the head column-parallel."""
-    head, h = params["head"], local(hidden)
-    out = torch.einsum("bsd,dv->bsv", h, local(head).to(h.dtype))
-    out = on_mesh(out, mesh_of(hidden), {0: local_slice(hidden, 0)[1], 2: local_slice(head, 1)[1]})
+    """Over ranks each rank's ``vocab`` slice, the head column-parallel on
+    the whole sequence (a training forward's hidden states, split over it,
+    gathered first)."""
+    head = params["head"]
+    hidden = shard(hidden, "batch", None, None)
+    mesh, vocab = mesh_of(hidden), local_slice(head, 1)[1]
+    h = grad_sum(local(hidden), mesh, vocab)
+    out = torch.einsum("bsd,dv->bsv", h, used_on(head).to(h.dtype))
+    out = on_mesh(out, mesh, {0: local_slice(hidden, 0)[1], 2: vocab})
     return shard(out, "batch", None, "vocab")
 
 
 def train_loss(c: LMConfig, params, tokens, labels):
     """Mean next-token cross-entropy; labels = tokens shifted by the pipeline.
-    A label id < 0 masks its position out.  Returns (ce + aux, {"ce", "aux"})."""
+    A label id < 0 masks its position out.  Returns (ce + aux, {"ce", "aux"}).
+    Over ranks the logits stay split on ``vocab`` (``layers.token_nll``) and
+    the masked mean is the global batch's: its sum and count summed over the
+    batch's mesh axes."""
     hidden, aux = forward(c, params, tokens)
-    logits = logits_fn(c, params, hidden).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+    nll = L.token_nll(logits_fn(c, params, hidden), labels)
+    mask = (local(labels) >= 0).to(torch.float32)
+    mesh, rows = mesh_of(tokens), local_slice(tokens, 0)[1]
+    total, count = all_sum(torch.sum(nll * mask), mesh, rows), all_sum(mask.sum(), mesh, rows)
+    ce = total / torch.clamp(count, min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

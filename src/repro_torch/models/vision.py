@@ -23,7 +23,9 @@ extent does not divide stays whole on every rank, the MLP split all the
 same); Swin's window attention inline on the rank's heads, its
 relative-position bias sliced with them, and its patch merging's
 column-parallel output gathered whole for the next stage's norm.  The
-logits come back split over ``vocab`` as the head's columns are.
+logits come back split over ``vocab`` as the head's columns are.  A
+training forward over ranks (``train_rules``) is the same code under
+autograd, the weights' ``embed`` dims gathered (``common.used_on``).
 """
 from __future__ import annotations
 
@@ -35,10 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding.rules import all_gather
+from ..sharding.rules import all_gather, grad_sum
 from . import layers as L
-from .common import (like, local, local_slice, mesh_of, on_mesh, rows_like, shard, spec, stack_specs, tree_map,
-                     unstack_tree)
+from .common import (like, local, local_slice, mesh_of, on_mesh, plus, rows_like, shard, spec, stack_specs,
+                     unstack_tree, used_on, weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,27 +98,28 @@ def vit_abstract_params(c: ViTConfig) -> dict:
 
 def _vit_block(c: ViTConfig, p, x):
     a, _ = L.attention(c.attn_cfg(), p["attn"], L.layernorm(p["ln1"], x))
-    x = shard(x + a, "batch", None, None)
+    x = shard(plus(x, a), "batch", None, None)
     f = L.mlp(p["mlp"], L.layernorm(p["ln2"], x))
-    return shard(x + f, "batch", None, None)
+    return shard(plus(x, f), "batch", None, None)
 
 
 def _head(p, images, h):
     """Logits f32 of the pooled features ``h`` (local rows, whole): over
     ranks a DTensor of the rank's ``vocab`` columns."""
-    w, b = local(p["w"]), local(p["b"])
-    logits = (h @ w.to(h.dtype) + b.to(h.dtype)).to(torch.float32)
-    return on_mesh(logits, mesh_of(images), {0: local_slice(images, 0)[1], 1: local_slice(p["w"], 1)[1]})
+    mesh, vocab = mesh_of(p["w"]), local_slice(p["w"], 1)[1]
+    w, b = used_on(p["w"]), used_on(p["b"])
+    logits = (grad_sum(h, mesh, vocab) @ w.to(h.dtype) + b.to(h.dtype)).to(torch.float32)
+    return on_mesh(logits, mesh_of(images), {0: local_slice(images, 0)[1], 1: vocab})
 
 
 def vit_forward(c: ViTConfig, params, images):
     """images: [B, H, W, 3] -> logits [B, n_classes] f32."""
-    pe, imgs = tree_map(local, params["patch_embed"]), local(images)
+    pe, imgs = weights(params["patch_embed"]), local(images)
     B = imgs.shape[0]
     x = F.conv2d(imgs.to(torch.bfloat16).permute(0, 3, 1, 2), pe["w"].to(torch.bfloat16), stride=c.patch)  # VALID
     x = x.permute(0, 2, 3, 1).reshape(B, -1, c.d_model) + pe["b"].to(torch.bfloat16)
-    cls = local(params["cls"]).to(x.dtype).expand(B, 1, c.d_model)
-    x = torch.cat([cls, x], dim=1) + local(params["pos"]).to(x.dtype)
+    cls = used_on(params["cls"]).to(x.dtype).expand(B, 1, c.d_model)
+    x = torch.cat([cls, x], dim=1) + used_on(params["pos"]).to(x.dtype)
     x = shard(rows_like(images, x), "batch", None, None)
     for blk in unstack_tree(params["blocks"]):  # the reference's lax.scan over the stacked blocks
         x = _vit_block(c, blk, x)
@@ -227,7 +230,7 @@ def _window_attention(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int,
     Over ranks on the local batch rows and the rank's heads (``wq``/``wk``/
     ``wv`` and ``rel_bias`` column slices, ``wo`` row-parallel: one sum)."""
     mesh, out_like, head_axes = mesh_of(x), x, local_slice(p["wq"], 1)[1]
-    x, p = local(x), tree_map(local, p)
+    x, p = grad_sum(local(x), mesh, head_axes), weights(p, x)
     heads = p["wq"].shape[1]  # the rank's
     B = x.shape[0]
     w = c.window
@@ -260,9 +263,9 @@ def _window_attention(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int,
 def _swin_block(c: SwinConfig, dim: int, heads: int, p, x, H: int, W: int, shift: int):
     a = _window_attention(c, dim, heads, {**p["attn"], "rel_bias": p["rel_bias"]},
                           L.layernorm(p["ln1"], x), H, W, shift)
-    x = shard(x + a, "batch", None, None)
+    x = shard(plus(x, a), "batch", None, None)
     f = L.mlp(p["mlp"], L.layernorm(p["ln2"], x))
-    return shard(x + f, "batch", None, None)
+    return shard(plus(x, f), "batch", None, None)
 
 
 def _patch_merge(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -275,7 +278,7 @@ def _patch_merge(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
 
 def swin_forward(c: SwinConfig, params, images):
     """images: [B, H, W, 3] -> logits [B, n_classes] f32."""
-    pe, imgs = tree_map(local, params["patch_embed"]), local(images)
+    pe, imgs = weights(params["patch_embed"]), local(images)
     B = imgs.shape[0]
     x = F.conv2d(imgs.to(torch.bfloat16).permute(0, 3, 1, 2), pe["w"].to(torch.bfloat16), stride=c.patch)  # VALID
     H = W = c.img_res // c.patch
@@ -292,9 +295,10 @@ def swin_forward(c: SwinConfig, params, images):
             # Patch merging: 2x2 neighbourhood concat + linear down-projection,
             # its columns (split over mlp on ranks) gathered whole for the next norm.
             mw = stage["merge"]["w"]
+            mesh, cols = mesh_of(mw), local_slice(mw, 1)[1]
             xs = L.layernorm(stage["merge"]["ln"], _patch_merge(local(x), H, W))
-            y = torch.einsum("bsd,dk->bsk", xs, local(mw).to(xs.dtype))
-            x = rows_like(images, all_gather(y, 2, mesh_of(mw), local_slice(mw, 1)[1]))
+            y = torch.einsum("bsd,dk->bsk", grad_sum(xs, mesh, cols), used_on(mw).to(xs.dtype))
+            x = rows_like(images, all_gather(y, 2, mesh, cols))
             H, W = H // 2, W // 2
 
     x = L.layernorm(params["ln_f"], x)

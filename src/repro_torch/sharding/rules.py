@@ -19,8 +19,19 @@ A step over ranks computes on each rank's local shards and meets the other
 ranks only through this module: :func:`redistribute` (what ``constrain``,
 and so ``models.common.shard``, does to a DTensor) and the explicit
 collectives :func:`all_sum`, :func:`all_max` and :func:`all_gather` over
-named mesh axes.  Each of them stages a CUDA tensor through the host where
-the group is gloo, and adds what it issued to :data:`COLLECTIVES`.
+named mesh axes.  Each of them stages a CUDA
+tensor through the host where the group is gloo, and adds what it issued to
+:data:`COLLECTIVES`.
+
+Autograd sees each of them, with its adjoint (a training step over ranks):
+every tensor that the ranks hold whole carries its whole gradient on every
+rank, a split one its part, a partial sum the sum's.  So a sum's backward
+is the identity, a gather's is the rank's part of the gradient (an FSDP
+leaf's gather reduce-scatters it), and where a whole tensor feeds a computation
+that differs by rank, :func:`grad_sum` (Megatron's "f") sums its
+gradient over the ranks.  Backward collectives go through the same three
+primitives (``_reduce``, ``_gather``, ``_moved``), so every rank issues
+them in the order autograd visits the graph, the same on every rank.
 """
 
 from __future__ import annotations
@@ -225,7 +236,8 @@ class MeshRules:
 
 # Collectives issued through this module since the process started, by kind
 # ("sum", "max", "gather": one per mesh axis of extent > 1;
-# "redistribute": one per call that moves data).
+# "redistribute": one per call that moves data), those of a backward pass
+# under the kind with "/backward" after it.
 COLLECTIVES: collections.Counter = collections.Counter()
 
 
@@ -242,6 +254,10 @@ def _axes(mesh, axes) -> list[str]:
     return [a for a in axes if mesh.size(mesh.mesh_dim_names.index(a)) > 1] if axes else []
 
 
+# The three primitives below issue every collective of this module, forward
+# and backward; the autograd functions after them pair each with its adjoint.
+
+
 def _reduce(x: torch.Tensor, mesh, axes, op, kind: str) -> torch.Tensor:
     for a in _axes(mesh, axes):
         group = mesh.get_group(a)
@@ -252,55 +268,196 @@ def _reduce(x: torch.Tensor, mesh, axes, op, kind: str) -> torch.Tensor:
     return x
 
 
-def all_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The sum of the local tensor ``x`` over the ranks along mesh ``axes``
-    of the ``DeviceMesh`` ``mesh`` (``x`` itself where no axis splits)."""
-    return _reduce(x, mesh, axes, dist.ReduceOp.SUM, "sum")
-
-
-def all_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The elementwise max of ``x`` over the ranks along mesh ``axes``."""
-    return _reduce(x, mesh, axes, dist.ReduceOp.MAX, "max")
-
-
-def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
-    """The local tensors of the ranks along mesh ``axes`` joined on ``dim``,
-    nested as a DTensor nests a dim sharded over them (the first axis
-    outermost): the inverse of a ``Shard(dim)`` on each."""
+def _gather(x: torch.Tensor, dim: int, mesh, axes, kind: str = "gather") -> torch.Tensor:
     for a in reversed(_axes(mesh, axes)):
         group = mesh.get_group(a)
         src = x.cpu() if _staged(x, group) else x.contiguous()
         parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, src, group=group)
         x = torch.cat(parts, dim).to(x.device)
-        COLLECTIVES["gather"] += 1
+        COLLECTIVES[kind] += 1
     return x
 
 
-def redistribute(x, target: Sequence) -> Any:
-    """``x.redistribute`` to ``target`` placements on its mesh; ``x`` itself
-    where it is laid out so already.  gloo's functional
+def _own(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """This rank's part of dim ``dim`` of ``x`` split over mesh ``axes``
+    (the first axis outermost, as :func:`all_gather` joins them)."""
+    index, n = 0, 1
+    for a in _axes(mesh, axes):
+        i = mesh.mesh_dim_names.index(a)
+        index, n = index * mesh.size(i) + mesh.get_coordinate()[i], n * mesh.size(i)
+    return x if n == 1 else x.chunk(n, dim)[index]
+
+
+def _grad_kind(kind: str) -> str:
+    return f"{kind}/backward"
+
+
+class _Sum(torch.autograd.Function):
+    """A sum of partials into a value every rank then uses whole: the
+    gradient of each rank's partial is the value's, unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _reduce(x, mesh, axes, dist.ReduceOp.SUM, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Max(torch.autograd.Function):
+    """The elementwise max over ranks; its gradient goes to the ranks that
+    hold the max, shared equally among ties."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        y = _reduce(x, mesh, axes, dist.ReduceOp.MAX, "max")
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.save_for_backward(x == y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (at,) = ctx.saved_tensors
+        at = at.to(g.dtype)
+        return g * at / _reduce(at, ctx.mesh, ctx.axes, dist.ReduceOp.SUM, _grad_kind("sum")), None, None
+
+
+class _GradSum(torch.autograd.Function):
+    """The identity forward; the sum over ranks backward (Megatron's "f"):
+    where a tensor every rank holds whole feeds a computation that differs
+    by rank (its heads, MLP columns or experts, its rows of a split
+    sequence), each rank's gradient is a partial of the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, ctx.axes, dist.ReduceOp.SUM, _grad_kind("sum")), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' parts joined on ``dim``; backward, this rank's part of the
+    gradient (``scatter``: the gradient summed over the ranks first, a
+    reduce-scatter, where each rank used the whole differently)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes, scatter):
+        ctx.args = dim, mesh, axes, scatter
+        return _gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axes, scatter = ctx.args
+        if scatter:
+            g = _reduce(g, mesh, axes, dist.ReduceOp.SUM, _grad_kind("reduce_scatter"))
+        return _own(g, dim, mesh, axes), None, None, None, None
+
+
+def all_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of the local tensor ``x`` over the ranks along mesh ``axes``
+    of the ``DeviceMesh`` ``mesh`` (``x`` itself where no axis splits).
+    Backward the identity: every rank uses the sum whole."""
+    return _Sum.apply(x, mesh, tuple(_axes(mesh, axes))) if mesh is not None and _axes(mesh, axes) else x
+
+
+def all_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks along mesh ``axes``."""
+    return _Max.apply(x, mesh, tuple(_axes(mesh, axes))) if mesh is not None and _axes(mesh, axes) else x
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh, axes, *, scatter_grad: bool = False) -> torch.Tensor:
+    """The local tensors of the ranks along mesh ``axes`` joined on ``dim``,
+    nested as a DTensor nests a dim sharded over them (the first axis
+    outermost): the inverse of a ``Shard(dim)`` on each.  Backward, this
+    rank's part of the gradient, or with ``scatter_grad`` (each rank used
+    the whole on its own rows: an FSDP leaf) the gradient's sum over the
+    ranks, reduce-scattered."""
+    if mesh is None or not _axes(mesh, axes):
+        return x
+    return _Gather.apply(x, dim, mesh, tuple(_axes(mesh, axes)), scatter_grad)
+
+
+def grad_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x``, whose gradient is summed over the ranks along mesh ``axes`` in
+    the backward pass (Megatron's "f"); ``x`` itself where no gradient is
+    built or no axis splits."""
+    if mesh is None or not (torch.is_grad_enabled() and x.requires_grad) or not _axes(mesh, axes):
+        return x
+    return _GradSum.apply(x, mesh, tuple(_axes(mesh, axes)))
+
+
+def whole(x: Any) -> Any:
+    """A DTensor's global value as a plain tensor on every rank, gathered
+    through :func:`all_gather` dim by dim (a host copy on gloo groups);
+    anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh, t, dims = x.device_mesh, x.to_local(), {}
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            dims.setdefault(p.dim, []).append(mesh.mesh_dim_names[i])
+    for d, axes in dims.items():
+        t = all_gather(t, d, mesh, tuple(axes))
+    return t
+
+
+def _moved(local: torch.Tensor, mesh, source, target, shape, stride, kind: str) -> torch.Tensor:
+    """This rank's local tensor of a DTensor of global ``shape`` moved from
+    ``source`` to ``target`` placements on ``mesh``.  gloo's functional
     collectives, which DTensor uses, crash on CUDA tensors (torch 2.11:
     a segfault in ``wait_tensor``; gloo carries CUDA ranks that share a
-    card, where NCCL refuses two ranks on one device), so a CUDA DTensor on
-    gloo groups redistributes a host copy over the same groups and comes
-    back to its card.  A move that only splits replicated dims needs no
-    collective and stays on the card."""
-    mesh = x.device_mesh
-    moved = [(a, b) for a, b in zip(x.placements, target) if a != b]
-    if not moved:
-        return x
-    if all(a.is_replicate() for a, _ in moved):
-        return x.redistribute(mesh, target)
-    COLLECTIVES["redistribute"] += 1
-    if mesh.device_type != "cuda" or dist.get_backend(mesh.get_group(0)) != "gloo":
-        return x.redistribute(mesh, target)
-    from torch.distributed.device_mesh import DeviceMesh
+    card, where NCCL refuses two ranks on one device), so a CUDA tensor on
+    gloo groups moves as a host copy over the same groups and comes back to
+    its card.  A move that only splits replicated dims needs no collective
+    and stays on the card."""
     from torch.distributed.tensor import DTensor
+
+    moved = [(a, b) for a, b in zip(source, target) if a != b]
+    if not moved:
+        return local
+    x = DTensor.from_local(local, mesh, source, run_check=False, shape=shape, stride=stride)
+    if all(a.is_replicate() for a, _ in moved):
+        return x.redistribute(mesh, target).to_local()
+    COLLECTIVES[kind] += 1
+    if mesh.device_type != "cuda" or dist.get_backend(mesh.get_group(0)) != "gloo":
+        return x.redistribute(mesh, target).to_local()
+    from torch.distributed.device_mesh import DeviceMesh
 
     host_mesh = DeviceMesh.from_group([mesh.get_group(i) for i in range(mesh.ndim)], "cpu", mesh=mesh.mesh,
                                       mesh_dim_names=mesh.mesh_dim_names)
-    host = DTensor.from_local(x.to_local().cpu(), host_mesh, x.placements, run_check=False,
-                              shape=x.shape, stride=x.stride())
-    local = host.redistribute(host_mesh, target).to_local().to(x.device)
+    host = DTensor.from_local(local.cpu(), host_mesh, source, run_check=False, shape=shape, stride=stride)
+    return host.redistribute(host_mesh, target).to_local().to(local.device)
+
+
+class _Redistribute(torch.autograd.Function):
+    """A layout move of a DTensor's local tensor; backward, the gradient's
+    move back (a gather's is this rank's part, a split's a gather)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, source, target, shape, stride):
+        ctx.args = mesh, source, target, shape, stride
+        return _moved(local, mesh, source, target, shape, stride, "redistribute")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, source, target, shape, stride = ctx.args
+        return _moved(g.contiguous(), mesh, target, source, shape, stride, _grad_kind("redistribute")), *[None] * 5
+
+
+def redistribute(x, target: Sequence) -> Any:
+    """``x`` (a DTensor) laid out as ``target`` placements on its mesh, by
+    :func:`_moved`; ``x`` itself where it is laid out so already.  Under
+    autograd the move's adjoint moves the gradient back."""
+    from torch.distributed.tensor import DTensor
+
+    target = list(target)
+    if list(x.placements) == target:
+        return x
+    mesh = x.device_mesh
+    local = _Redistribute.apply(x.to_local(), mesh, tuple(x.placements), tuple(target), x.shape, x.stride())
     return DTensor.from_local(local, mesh, target, run_check=False, shape=x.shape, stride=x.stride())

@@ -7,6 +7,11 @@ checkpoint holds it as a leaf.  Unlike the reference's pure update,
 saves a copy of every tensor.  The schedule and bias corrections are
 computed from the step tensor in f32, as the reference computes them, so a
 step on the card reads nothing back to the host.
+
+Over ranks (a ruled train step) every leaf is a DTensor and the update runs
+on each rank's local shards in place, with no DTensor op: the global norm
+sums each leaf's squares over the mesh axes that split it (one sum for all
+the leaves split alike), so an element held whole on many ranks counts once.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Any
 
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..models.common import is_dtensor, local, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,21 +54,34 @@ def init_opt_state(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))
+    """The 2-norm of every element of the tree in f32; over ranks from the
+    local shards, their squares summed over the axes that split each leaf."""
+    leaves = tree_leaves(tree)
+    if not any(is_dtensor(x) for x in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+    from ..sharding.rules import all_sum
+
+    groups: dict = {}
+    for x in leaves:
+        names = x.device_mesh.mesh_dim_names
+        axes = tuple(names[i] for i, p in enumerate(x.placements) if p.is_shard())
+        square = torch.sum(torch.square(local(x).to(torch.float32)))
+        groups[axes] = (x.device_mesh, groups[axes][1] + square if axes in groups else square)
+    return torch.sqrt(sum(all_sum(sq, mesh, axes) for axes, (mesh, sq) in sorted(groups.items())))
 
 
 @torch.no_grad()
 def adamw_update(c: AdamWConfig, params: Any, grads: Any, opt: dict) -> dict:
     """One AdamW step in place; returns metrics {"grad_norm", "lr"} (0-d f32
     tensors)."""
-    opt["step"].add_(1)
-    step = opt["step"].to(torch.float32)
+    local(opt["step"]).add_(1)
+    step = local(opt["step"]).to(torch.float32)
     gnorm = global_norm(grads)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) if c.grad_clip else 1.0
     lr = lr_at(c, step)
     b1t = 1 - c.b1**step
     b2t = 1 - c.b2**step
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(opt["m"]), tree_leaves(opt["v"])):
+    for p, g, m, v in zip(*(map(local, tree_leaves(t)) for t in (params, grads, opt["m"], opt["v"]))):
         g = g.to(torch.float32) * scale
         m.mul_(c.b1).add_((1 - c.b1) * g)
         v.mul_(c.b2).add_((1 - c.b2) * g * g)

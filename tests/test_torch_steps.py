@@ -232,13 +232,14 @@ def test_train_state_bytes_fit_table(name):
 
 
 def test_unported_families_and_rules_raise():
-    """Under mesh rules the serving kinds build (ROADMAP items 8.1, 8.2: the
-    LMs' prefill and decode, denoise_step, classify_serve), each keeping its
-    rules, with a spec for every argument leaf; a training kind raises,
-    naming its ROADMAP entry (8.3); a family no config registers and an arch
-    no registry holds raise."""
+    """Under mesh rules every kind builds (ROADMAP items 8.1-8.3: the LMs'
+    prefill and decode, denoise_step, classify_serve, and the training kinds
+    under train_rules), each keeping its rules, with a spec for every
+    argument leaf; a training cell whose microbatch does not split over the
+    batch axes raises; a family no config registers and an arch no registry
+    holds raise."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.sharding import MeshRules, serve_rules
+    from repro_torch.sharding import MeshRules, serve_rules, train_rules
 
     mesh = make_host_mesh(2, 2)  # no process group: a descriptor
     rules = MeshRules(mesh, serve_rules(mesh))
@@ -251,11 +252,16 @@ def test_unported_families_and_rules_raise():
         assert [len(common.tree_leaves(s)) for s in prog.shardings()] == [
             len(common.tree_leaves(s)) for s in prog.arg_specs]
     assert steps.build_cell(configs.get("qwen3-0.6b"), "decode_32k").shardings() is None
-    assert steps.RULES_ENTRY == {"train": "item 8.3", "denoise_train": "item 8.3", "classify_train": "item 8.3"}
-    for name, shape, entry in (("qwen3-0.6b", "train_4k", "8.3"), ("dit-xl2", "train_256", "8.3"),
-                               ("resnet-50", "cls_224", "8.3")):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {entry}\)"):
-            steps.build_cell(configs.get(name), shape, rules=rules)
+    assert not hasattr(steps, "RULES_ENTRY")
+    train = MeshRules(mesh, train_rules(mesh))
+    for name, shape in (("qwen3-0.6b", "train_4k"), ("dit-xl2", "train_256"), ("resnet-50", "cls_224")):
+        prog = steps.build_cell(configs.get(name), shape, rules=train)
+        assert prog.rules is train and prog.kind in ("train", "denoise_train", "classify_train")
+        assert [len(common.tree_leaves(s)) for s in prog.shardings()] == [
+            len(common.tree_leaves(s)) for s in prog.arg_specs]
+    odd = dataclasses.replace(configs.get("resnet-50"), shapes=(A.ShapeSpec("t", "classify_train", 6, img=224),))
+    with pytest.raises(ValueError, match="does not split evenly"):
+        steps.build_cell(odd, "t", rules=train, accum_steps=2)
     unet = A.Arch("unet", "unet", None, shapes=(A.ShapeSpec("gen_fast", "denoise_step", 16, img=512),))
     for fn in (A.abstract_params, lambda a: A.input_specs(a, a.shapes[0])):
         with pytest.raises(ValueError):

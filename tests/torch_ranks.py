@@ -463,3 +463,171 @@ def ruled_init(name: str, shape: tuple, mesh_args: dict, seed: int, params_np: d
     layout = [(p.placements, p.shape) == (q.placements, q.shape) for p, q in zip(tree_leaves(params),
                                                                                   tree_leaves(ruled[0]))]
     return {"equal": equal, "split": split, "from_jax": layout}
+
+
+def train_case_arch(A, configs, case: dict):
+    """The SMOKE arch of a training ``case`` cut to its one shape ``t``
+    (``case["shape"]``: kind, batch, seq, image side), its config changed
+    by ``case["cfg"]`` where given; either package's ``arch`` and
+    ``configs``."""
+    import dataclasses
+
+    kind, batch, seq, img = case["shape"]
+    arch = configs.get(case["arch"], smoke=True)
+    arch = dataclasses.replace(arch, shapes=(A.ShapeSpec("t", kind, batch, seq=seq, img=img),))
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, **case.get("cfg", {})))
+
+
+PRIMITIVES = ("_reduce", "_gather", "_moved")
+
+
+def train_guarded(fn, *args) -> tuple:
+    """``fn(*args)`` under ``CommDebugMode``, with the primitives of
+    ``sharding.rules`` that issue its every collective, forward and backward
+    (``PRIMITIVES``), counted by the same mode around each call: (the
+    result, {every collective issued, those inside the primitives, the
+    helpers' tally ``rules.COLLECTIVES`` by kind})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.sharding import rules as R
+
+    inside, tally = [0], dict(R.COLLECTIVES)
+    with CommDebugMode() as mode:
+        def counted(real):
+            def wrapped(*a, **kw):
+                before = mode.get_total_counts()
+                result = real(*a, **kw)
+                inside[0] += mode.get_total_counts() - before
+                return result
+            return wrapped
+
+        saved = {n: getattr(R, n) for n in PRIMITIVES}
+        for n, real in saved.items():
+            setattr(R, n, counted(real))
+        try:
+            result = fn(*args)
+        finally:
+            for n, real in saved.items():
+                setattr(R, n, real)
+    issued = {k: v - tally.get(k, 0) for k, v in R.COLLECTIVES.items() if v != tally.get(k, 0)}
+    return result, {"total": mode.get_total_counts(), "inside": inside[0], "tally": issued}
+
+
+def train_rule_steps(cases: dict) -> dict:
+    """Each training case (arch, shape, mesh, accum_steps, AdamW settings,
+    whether its attention is blockwise (``layers.BLOCKWISE_THRESHOLD`` 0),
+    the train state and batch as numpy trees in the port's layout) through
+    ``build_cell(..., rules=MeshRules(mesh, train_rules(mesh)))`` on this
+    rank, in f32: the mesh coordinate, ``shardings()``; ``value_and_grad``
+    of ``meta["loss_fn"]`` (its loss and every gradient's local shard and
+    slices); then one step under :func:`train_guarded`: its metrics, every
+    leaf of the updated state (local shard and slices), whether each leaf
+    kept its placements and its storage, and the collectives."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch import configs, interop
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.common import local, tree_leaves
+    from repro_torch.sharding import MeshRules, train_rules
+    from repro_torch.train.optim import AdamWConfig
+
+    in_f32(torch)
+    out = {}
+    threshold = layers.BLOCKWISE_THRESHOLD
+    for key, case in cases.items():
+        layers.BLOCKWISE_THRESHOLD = 0 if case.get("blockwise") else threshold
+        mesh = make_host_mesh(**case["mesh"], device="cpu")
+        rules = MeshRules(mesh, train_rules(mesh))
+        prog = steps.build_cell(train_case_arch(A, configs, case), "t", rules=rules,
+                                adamw=AdamWConfig(**case["adamw"]), accum_steps=case["accum"])
+        ts, batch = (interop.place(a, s, rules, device="cpu") for a, s in zip(case["args"], prog.arg_specs))
+        (loss, _), grads = steps.value_and_grad(prog.meta["loss_fn"], ts["params"], ts["state"], batch)
+        placements = [t.placements for t in tree_leaves(ts)]
+        storage = [local(t).data_ptr() for t in tree_leaves(ts)]
+        (ts, metrics), comms = train_guarded(prog, ts, batch)
+        leaves = tree_leaves(ts)
+        out[key] = {"coord": list(mesh.device_mesh.get_coordinate()),
+                    "shardings": [spec_lists(s) for s in prog.shardings()],
+                    "loss": float(loss), "grads": [laid_out(g) for g in grads],
+                    "metrics": {k: float(v) for k, v in metrics.items()},
+                    "ts": [laid_out(t) for t in leaves],
+                    "kept": [t.placements == p for t, p in zip(leaves, placements)],
+                    "in_place": [local(t).data_ptr() == d for t, d in zip(leaves, storage)],
+                    "comms": comms}
+    layers.BLOCKWISE_THRESHOLD = threshold
+    return out
+
+
+ELASTIC_SHAPE = ("train", 4, 16, 0)  # a SMOKE qwen3 train cell: batch 4 of 16 tokens
+
+
+def elastic_ruled(ckpt: str, restart: bool) -> dict:
+    """Item 8.5 on ranks: a SMOKE qwen3-0.6b trained under ``train_rules``.
+    Without ``restart``, on 4 ranks at (2, 2): 6 steps from the seed-0
+    init, the train state saved after the 4th (``checkpoint.save``, every
+    rank gathering, rank 0 writing); returns the losses.  With
+    ``restart``, on the ranks of the re-planned mesh (3 survivors of 4 chips
+    at model 2: (1, 2), ``data_parallel_scale`` 0.5): the state restored onto
+    a ruled step with ``accum_steps`` 1 / scale (``restore_resharded`` with
+    the new ``prog.shardings()``), whether each rank's shards equal the
+    saved arrays' slices, and steps 5-6 from the same batches; returns the
+    losses, the step restored and the plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch import checkpoint as ck
+    from repro_torch import configs, interop
+    from repro_torch.data import DataSpec, SyntheticStream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import local, local_slice, tree_leaves, tree_map
+    from repro_torch.runtime import plan_elastic_remesh
+    from repro_torch.sharding import MeshRules, train_rules
+    from repro_torch.train.optim import AdamWConfig
+
+    plan = plan_elastic_remesh(3, model_axis=2, pod_size=4, prior_chips=4)
+    shape, accum = (2, 2), 1
+    if restart:
+        shape, accum = plan.mesh_shape, round(1 / plan.data_parallel_scale)
+    mesh = make_host_mesh(*shape, device="cpu")
+    rules = MeshRules(mesh, train_rules(mesh))
+    arch = train_case_arch(A, configs, {"arch": "qwen3-0.6b", "shape": ELASTIC_SHAPE})
+    prog = steps.build_cell(arch, "t", rules=rules, adamw=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=20),
+                            accum_steps=accum)
+    stream = SyntheticStream(DataSpec(arch, arch.shape("t"), seed=0))
+
+    def batch(i):
+        return interop.place(stream.batch_at(i), prog.arg_specs[1], rules, device="cpu")
+
+    losses = []
+    if not restart:
+        ts = prog.init_arg(0, 0, "cpu")
+        for i in range(6):
+            ts, m = prog(ts, batch(i))
+            losses.append(float(m["loss"]))
+            if i == 3:
+                ck.save(ckpt, 4, ts)
+        return {"losses": losses}
+    like = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype), prog.arg_specs[0])
+    ts, _ = ck.restore_resharded(ckpt, ck.latest_step(ckpt), like, prog.shardings()[0])
+    path = Path(ckpt) / f"step_{ck.latest_step(ckpt):08d}"
+    names = [p[1:] for p in _dotted(prog.arg_specs[0])]
+    equal = [bool(np.array_equal(local(t).numpy(), np.load(path / f"{n}.npy")[
+        tuple(local_slice(t, d)[0] for d in range(t.dim()))])) for n, t in zip(names, tree_leaves(ts))]
+    split = sum(local(t).shape != t.shape for t in tree_leaves(ts))
+    restored = int(local(ts["opt"]["step"]))
+    for i in range(4, 6):
+        ts, m = prog(ts, batch(i))
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "restored": restored, "equal": equal, "split": split,
+            "mesh": list(plan.mesh_shape), "scale": plan.data_parallel_scale, "accum": accum}
+
+
+def _dotted(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _dotted(tree[k], f"{prefix}.{k}")]
+    return [prefix]
