@@ -165,8 +165,8 @@ Phases (each raises on failure, so any failure exits non-zero):
                   array's slice; (d) MeshRules.constrain of a DTensor on the
                   card, Shard(0) -> Replicate, exact; no kernel launch in
                   (a)-(d); (e) the LMs' serving steps through
-                  build_cell(..., rules=MeshRules(mesh, serve_rules(mesh)))
-                  (MESH_MODELS: qwen3-0.6b at 14 of 28 layers on a (2, 2) mesh,
+                  dryrun.rank_program (the dry run's ruled step: serve_rules
+                  and arch.sharding_overrides) (MESH_MODELS: qwen3-0.6b at 14 of 28 layers on a (2, 2) mesh,
                   qwen2-moe-a2.7b at 2 layers on (1, 4) with its experts
                   split; batch 2, a 4096-token prefill, decode steps
                   against 32768 filled slots whose length crosses a split
@@ -183,7 +183,7 @@ Phases (each raises on failure, so any failure exits non-zero):
                   and a decode step on 4 ranks against one, collectives a
                   step (host-staged), peak memory per rank; (f) the
                   diffusion and classifier serving steps through the same
-                  build_cell(..., rules=...) (MESH_SERVE: dit-xl2 gen_fast
+                  dryrun.rank_program (MESH_SERVE: dit-xl2 gen_fast
                   on (2, 2), flux-dev at 2 + 2 blocks on (1, 4), vit-s16,
                   swin-b and resnet-50 serve_b128 at batch 8,
                   efficientnet-b7 serve_b1; full width, seed-0 bf16,
@@ -196,8 +196,8 @@ Phases (each raises on failure, so any failure exits non-zero):
                   for each beyond (a rank's attention partial left out,
                   a rank's stem channels lost); ms a step on 4 ranks
                   against one, collectives a step, peak memory per rank;
-                  (g) the training kinds through build_cell(...,
-                  rules=MeshRules(mesh, train_rules(mesh))) (MESH_TRAIN:
+                  (g) the training kinds through dryrun.rank_program
+                  (train_rules) (MESH_TRAIN:
                   qwen3-0.6b and dit-xl2 at 2 layers, vit-s16 and
                   resnet-50 whole on (2, 2); qwen2-moe-a2.7b at 2 layers
                   and flux-dev at 1 + 1 blocks on (1, 4); full width,
@@ -211,13 +211,26 @@ Phases (each raises on failure, so any failure exits non-zero):
                   column-parallel input's gradient left out); the bf16
                   distance, ms a step on 4 ranks against one, collectives
                   a step forward and backward, peak memory per rank; no
-                  kernel launch.  ``--mesh-parts train`` (any of sweeps,
-                  models, serve, train, comma-separated) runs the phase
-                  alone with those parts after the environment, a
-                  rehearsal that prints no result line
+                  kernel launch.  Each ruled step of (e)-(g) records the
+                  collectives sharding.rules issued by kind and its
+                  step's memory (step_memory: the peak reset after its
+                  arguments were placed; in (g) an untimed step before
+                  the timed one).  ``--mesh-parts train`` (any of
+                  sweeps, models, serve, train, comma-separated) runs the
+                  phase alone with those parts after the environment, then
+                  13b, a rehearsal that prints no result line
+ 13b. mesh dryrun (e)-(g)'s cases at their cuts, each the record
+                  dryrun.record writes for the case's mesh (rank 0 of a
+                  fake process group on meta, the same rank_program the
+                  ranks ran; a subprocess on the host CPU, no card): its
+                  collectives a step by kind equal to every rank's on the
+                  card, exactly; its bytes by kind, collective seconds and
+                  fits printed; its estimated peak within
+                  MESH_DRYRUN_PEAK_RTOL of each rank's measured step peak;
+                  no kernel launch in the subprocess (its own counts)
  14. report       wall seconds of every phase, the {"kernels": [...]} line
                   (both kernels: launches on the main path, 0 in train_full
-                  and in phases 7b-12 and the mesh phase's (a)-(d) and (g);
+                  and in phases 7b-13b but the mesh phase's (e) and (f);
                   its (e)'s and (f)'s flash launches, here and on the
                   ranks, counted), then the contract's last line
 
@@ -664,6 +677,25 @@ MESH_TRAIN_ADAMW = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 100}
 # for the ranks to read, and qwen2-moe's whole state and gradients are 34 GB.
 MESH_TRAIN_STRIDE = 101
 MESH_TRAIN_WHOLE = 1 << 20
+# 13b. mesh dryrun: (e)'s prefill and decode, (f) and (g) at their cuts, each
+# the record launch/dryrun.record writes for its mesh: rank 0 of a fake
+# process group on meta, the step dryrun.rank_program builds (the one the
+# ranks ran), in a subprocess on the host CPU.  Collectives a step by kind
+# must equal every rank's exactly (the plain trace's: the card's step differs
+# from it only in the attention kernel, which issues none).  The peak (the
+# flash trace's where the card's step launches the flash kernel, else the
+# plain trace's) is held to each rank's step peak, max_memory_allocated over
+# the step reset after its arguments were placed, less what the rank held
+# beside them, within DRYRUN_PEAK_RTOL alone: the card's readings (every case
+# within 17.3%, PERF.md §6) need no absolute term, and one would leave the
+# band of a small peak (34-120 MB for ViT, Swin and the convnets at their cut
+# batches) almost unable to fail.  The trace models each collective as
+# torch.distributed runs it on a device (an all-gather's parts and its output
+# on the device at once), where the ranks sharing the card stage each through
+# the host: ResNet-50's serving step traces 18% above a trace of the staged
+# route (PERF.md §6).
+MESH_DRYRUN_PEAK_RTOL = DRYRUN_PEAK_RTOL
+MESH_DRYRUN_TIMEOUT = 300  # seconds for the tracing subprocess
 
 
 def log(msg: str) -> None:
@@ -2574,19 +2606,26 @@ def batch_scenarios(session, core, spec: dict, grid: dict, every: int = 1, limit
 
 
 def step_memory(torch, step, args) -> dict:
-    """One call of ``step`` with its arguments ``args`` (trees of dicts)
-    resident, ended by a synchronize, and the card's memory around it: the
+    """One call of ``step`` with its arguments ``args`` (trees of dicts,
+    tuples and lists; a DTensor counts its local tensor) resident, ended by
+    a synchronize, and the card's memory around it: the
     bytes allocated before it, those of its arguments' distinct storages,
     the peak during it (the peak statistics reset just before), and the
     peak before that reset, which the calling phase keeps as its own."""
+    from repro_torch.models.common import local
+
     storages = {}
 
     def walk(t):
         if isinstance(t, dict):
             for v in t.values():
                 walk(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
         elif isinstance(t, torch.Tensor):
-            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            st = local(t).untyped_storage()  # a DTensor's: this rank's slice
+            storages[st.data_ptr()] = st.nbytes()
 
     walk(args)
     torch.cuda.synchronize()
@@ -2608,6 +2647,17 @@ def timed(torch, fn):
     if DEVICE == "cuda":
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def measured(torch, fn, args, mem: dict):
+    """``fn()``, a ruled step on its arguments ``args``; on the card its
+    ``step_memory`` goes into ``mem`` (the peak statistics are reset just
+    before it, after the arguments were placed)."""
+    if DEVICE != "cuda":
+        return fn()
+    box = []
+    mem.update(step_memory(torch, lambda: box.append(fn()), args))
+    return box[0]
 
 
 def phase_sweep(torch, core, session, smi: str) -> None:
@@ -3121,6 +3171,21 @@ def phase_cache(torch, core, session, smi: str) -> None:
         f"({held_allocated:.1f} MiB allocated: buffers and round state) in {len(shard.PROGRAMS)} programs ({smi})")
 
 
+def issued_since(R, before: dict) -> dict:
+    """The collectives ``sharding.rules`` issued since ``before`` (a copy of
+    ``R.COLLECTIVES``), by kind."""
+    return {k: v - before.get(k, 0) for k, v in R.COLLECTIVES.items() if v != before.get(k, 0)}
+
+
+def case_peak_gb(torch, mems) -> float:
+    """The card's peak over a mesh case, in GB: the larger of the peak
+    since the last reset and the peaks ``step_memory`` saw before its
+    resets (``mems``); 0 off the card."""
+    if DEVICE != "cuda":
+        return 0.0
+    return max([torch.cuda.max_memory_allocated(), *(m["earlier_peak_bytes"] for m in mems if m)]) / 1e9
+
+
 def mesh_arch(A, configs, name: str, depth):
     """(e)'s config of ``name`` (depth cut where ``depth`` is not None):
     a prefill of LM_PREFILL tokens and a decode against LM_DECODE_LEN
@@ -3229,11 +3294,22 @@ def lost_channels(convnets, torch, coord: int):
         yield
 
 
-def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
+def mesh_cell(steps, arch, shape_name: str, mesh=None, **kw):
+    """The mesh phase's step of ``arch`` at ``shape_name``: on one rank
+    (``mesh`` None) ``build_cell``; over ranks the dry run's ruled step,
+    ``dryrun.rank_program`` (``serve_rules`` or ``train_rules``,
+    ``arch.sharding_overrides`` on top), which 13b traces."""
+    from repro_torch.launch import dryrun
+
+    if mesh is None:
+        return steps.build_cell(arch, shape_name, **kw)
+    return dryrun.rank_program(arch, shape_name, mesh, **kw)
+
+
+def model_steps(torch, case: tuple, workdir: Path, mesh=None) -> dict:
     """(e) for one MESH_MODELS ``case`` in this process: on one rank
-    (``rules`` None, the parent) or on the ranks of ``rules``' mesh.  The
-    prefill and decode cells of ``mesh_arch`` through ``build_cell(...,
-    rules=rules)``, seed-SEED weights (attention matrices at their own
+    (``mesh`` None, the parent) or on the ranks of ``mesh``.  The prefill
+    and decode cells of ``mesh_arch`` (``mesh_cell``), seed-SEED weights (attention matrices at their own
     fan-in, as lm_full), the prompt from the seed; the checked prefill, then
     the checked decode steps against the filled cache.  One rank is the
     reference: its prefill and decode attend by the plain attention on
@@ -3247,8 +3323,9 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
     attention's sum and MESH_CONTROL_STEPS decode steps that leave the
     slots of coordinate 0 (which hold the valid ones) out of the merge.
     Returns the outputs (``laid``), flash launches of a prefill and in all,
-    collectives a prefill and a decode step (``rules.COLLECTIVES``), ms and
-    peak GB."""
+    collectives a prefill and a decode step (``rules.COLLECTIVES``; by kind
+    too), the checked prefill's and first decode step's memory on the
+    ranks (``step_memory``), ms and peak GB."""
     from repro_torch import arch as A
     from repro_torch import configs, interop
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3260,7 +3337,8 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
 
     name, depth, _, n_steps, length = case
     arch = mesh_arch(A, configs, name, depth)
-    pre, dec = (steps.build_cell(arch, s.name, rules=rules) for s in arch.shapes)
+    pre, dec = (mesh_cell(steps, arch, s.name, mesh) for s in arch.shapes)
+    rules = pre.rules
 
     def place(tree, specs):
         return tree if rules is None else interop.place(tree, specs, rules, device=DEVICE)
@@ -3282,15 +3360,20 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
     def plain_attention(q, k, v, *, causal=True, **_):
         return upcast_attention(torch, flash_ref, q, k, v, causal=causal)
 
-    def decode_pass(sdpa, n=n_steps):
+    def decode_pass(sdpa, n=n_steps, mem=None):
         """``n`` checked decode steps from the filled cache, ``layers._sdpa``
-        (one rank's decode attention) as ``sdpa``."""
+        (one rank's decode attention) as ``sdpa``; the first step's card
+        memory in ``mem`` where given."""
         nonlocal cache
         fill_cache(torch, cache, length)
         outs = []
         with mock.patch.object(L, "_sdpa", sdpa):
             for s in range(n):
-                out, cache = dec(params, cache, tokens[s])
+                if s == 0 and mem is not None:
+                    out, cache = measured(torch, lambda: dec(params, cache, tokens[0]), (params, cache, tokens[0]),
+                                          mem)
+                else:
+                    out, cache = dec(params, cache, tokens[s])
                 outs.append(laid(out))
         return outs
 
@@ -3298,16 +3381,18 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     launches0 = flash_ops.flash_attention.launches
+    mem = {"prefill": {}, "decode": {}}  # the ranks' step memory (step_memory)
     with expert_picks(L, picks, replay=rules is not None):
-        c0 = count()
+        c0, k0 = count(), dict(R.COLLECTIVES)
         if rules is None:  # the reference: the plain attention on f32-upcast q, k, v
             with mock.patch.object(flash_ops, "attention", plain_attention):
                 logits, _ = pre(params, batch)
         else:
-            logits, _ = pre(params, batch)
-        launches, c_pre = flash_ops.flash_attention.launches - launches0, count() - c0
+            logits, _ = measured(torch, lambda: pre(params, batch), (params, batch), mem["prefill"])
+        launches, c_pre, k_pre = flash_ops.flash_attention.launches - launches0, count() - c0, issued_since(R, k0)
         n_pre = len(picks)
-        outs = decode_pass(real_sdpa if rules is not None else upcast_sdpa)
+        outs = decode_pass(real_sdpa if rules is not None else upcast_sdpa,
+                           mem=mem["decode"] if rules is not None else None)
     out = {"prefill": laid(logits), "decode": outs}
     if rules is None:
         torch.save([p.cpu() for p in picks], picks_file)
@@ -3317,7 +3402,7 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
     _, s_pre = timed(torch, lambda: pre(params, batch))
     if rules is None:
         launches = flash_ops.flash_attention.launches - launches1
-    c0 = count()
+    c0, k0 = count(), dict(R.COLLECTIVES)
 
     def timed_steps():
         nonlocal cache
@@ -3325,7 +3410,9 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
             cache = dec(params, cache, tokens[s])[1]
 
     _, s_dec = timed(torch, timed_steps)
+    k_dec = {k: v / MESH_TIMED for k, v in issued_since(R, k0).items()}
     out.update(launches=launches, collectives={"prefill": c_pre, "decode": (count() - c0) / MESH_TIMED},
+               collective_kinds={"prefill": k_pre, "decode": k_dec}, memory=mem,
                ms={"prefill": s_pre * 1e3, "decode": s_dec * 1e3 / MESH_TIMED}, layers=arch.cfg.n_layers)
     if rules is not None and name == LM_CONTROL:
         with leave_out_partial(L, torch, "attention", 1):
@@ -3333,7 +3420,7 @@ def model_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
         with leave_out_partial(L, torch, "_sdpa_split", 0):
             out["decode_control"] = decode_pass(real_sdpa, MESH_CONTROL_STEPS)
     out["all_launches"] = flash_ops.flash_attention.launches - launches0
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0
+    out["peak_gb"] = case_peak_gb(torch, mem.values())
     return out
 
 
@@ -3364,10 +3451,10 @@ def implied_prediction(torch, family: str, batch: dict, out):
     return (out - (a2 / a_t)[:, None, None, None] * x) / (s2 - a2 * s_t / a_t)[:, None, None, None]
 
 
-def serve_steps(torch, case: tuple, rules=None) -> dict:
+def serve_steps(torch, case: tuple, mesh=None) -> dict:
     """(f) for one MESH_SERVE ``case`` in this process: on one rank
-    (``rules`` None, the parent) or on the ranks of ``rules``' mesh.  The
-    step of ``serve_arch`` through ``build_cell(..., rules=rules)``; its
+    (``mesh`` None, the parent) or on the ranks of ``mesh``.  The step of
+    ``serve_arch`` (``mesh_cell``); its
     weights drawn whole from the seed on every rank (zero-init leaves
     drawn, attention matrices at their own fan-in), then, over ranks, each
     rank's slices kept (``interop.place``); the inputs from the seed.  One
@@ -3379,7 +3466,8 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
     attention, Flux's joint attention, Swin's window attention), or a
     rank's stem channels lost before their gather (the convnets).  Returns
     the outputs (``laid``), flash launches in the checked step, collectives
-    a step (``rules.COLLECTIVES``), ms and peak GB."""
+    a step (``rules.COLLECTIVES``; by kind too), the checked step's memory
+    on the ranks (``step_memory``), ms and peak GB."""
     from repro_torch import arch as A
     from repro_torch import configs, interop
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3391,8 +3479,8 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
 
     arch = serve_arch(A, configs, case)
     family, cfg, shape = arch.family, arch.cfg, arch.shapes[0]
-    cell = steps.build_cell(arch, shape.name, rules=rules)
-    whole = steps.build_cell(arch, shape.name)
+    cell = mesh_cell(steps, arch, shape.name, mesh)
+    rules, whole = cell.rules, steps.build_cell(arch, shape.name)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3411,7 +3499,7 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
     def plain_attention(q, k, v, *, causal=True, **_):
         return upcast_attention(torch, flash_ref, q, k, v, causal=causal)
 
-    c0, launches0 = count(), flash_ops.flash_attention.launches
+    c0, k0, launches0, mem = count(), dict(R.COLLECTIVES), flash_ops.flash_attention.launches, {}
     if rules is None:  # the reference: the plain attention on f32-upcast q, k, v
         with mock.patch.object(flash_ops, "attention", plain_attention):
             y = cell(*args)
@@ -3420,8 +3508,9 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
                 with in_f32(torch, (diffusion, vision, convnets)):
                     out["f32"] = laid(cell(*args))
     else:
-        out = {"out": laid(cell(*args))}
+        out = {"out": laid(measured(torch, lambda: cell(*args), args, mem))}
     launches, collectives = flash_ops.flash_attention.launches - launches0, count() - c0
+    out.update(collective_kinds=issued_since(R, k0), memory=mem)
     _, s = timed(torch, lambda: cell(*args))
     partial = {"dit": ("attention", L), "vit": ("attention", L), "flux": ("_joint_attention", diffusion),
                "swin": ("_window_attention", vision)}.get(family)
@@ -3434,7 +3523,7 @@ def serve_steps(torch, case: tuple, rules=None) -> dict:
             out["control"] = laid(cell(*args))
     flash = attention_layers(cfg) if family in ("dit", "flux") else cfg.n_layers if family == "vit" else 0
     out.update(family=family, launches=launches, collectives=collectives, ms=s * 1e3, flash_per_step=flash,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0)
+               peak_gb=case_peak_gb(torch, [mem]))
     return out
 
 
@@ -3523,18 +3612,20 @@ def train_control(L, lm, R, torch, rules):
             yield "the sum over model of a column-parallel input's gradient left out"
 
 
-def train_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
-    """(g) for one MESH_TRAIN ``case`` in this process: on one rank (``rules``
-    None, the parent) or on the ranks of ``rules``' mesh.  The training cell
-    of ``mesh_train_arch`` through ``build_cell(..., rules=rules)``, its
+def train_steps(torch, case: tuple, workdir: Path, mesh=None) -> dict:
+    """(g) for one MESH_TRAIN ``case`` in this process: on one rank (``mesh``
+    None, the parent) or on the ranks of ``mesh``.  The training cell of
+    ``mesh_train_arch`` (``mesh_cell``), its
     state ``mesh_train_state``, SyntheticStream's first batch; with the model
     modules in f32 (``in_f32``): ``value_and_grad`` and one step; as they run
-    (bf16): ``value_and_grad``, then a timed step.  One rank writes its f32
+    (bf16): ``value_and_grad``, a step whose memory is measured, then a
+    timed step.  One rank writes its f32
     loss, gradients and stepped state (``train_sample``) to ``workdir``; the
     ranks read them and measure their own shards against them
     (``sampled_distance``), and run the control (``train_control``) in f32.
     Returns the loss, distances, ms a step, collectives a step (forward and
-    backward, ``rules.COLLECTIVES``), kernel launches and peak GB."""
+    backward, ``rules.COLLECTIVES``; by kind too) and memory
+    (``step_memory``) of the untimed step, kernel launches and peak GB."""
     from repro_torch import arch as A
     from repro_torch import configs, data, interop
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3551,7 +3642,8 @@ def train_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     launches0 = (ops.int8_matmul.launches, flash_ops.flash_attention.launches)
-    cell = steps.build_cell(arch, arch.shapes[0].name, rules=rules, adamw=AdamWConfig(**MESH_TRAIN_ADAMW))
+    cell = mesh_cell(steps, arch, arch.shapes[0].name, mesh, adamw=AdamWConfig(**MESH_TRAIN_ADAMW))
+    rules = cell.rules
     ts = mesh_train_state(torch, common, steps, cell, arch, rules)
     batch = train_batch(torch, data, arch)
     if rules is not None:
@@ -3586,13 +3678,15 @@ def train_steps(torch, case: tuple, workdir: Path, rules=None) -> dict:
         torch.save(ref, path)
     else:
         out["ts"] = {k: train_distances(torch, group, ref["ts"][k]) for k, group in groups.items() if group}
-    before = dict(R.COLLECTIVES)
+    before, mem = dict(R.COLLECTIVES), {}
+    ts = measured(torch, lambda: cell(ts, batch)[0], (ts, batch), mem)
+    issued = issued_since(R, before)
     _, s = timed(torch, lambda: cell(ts, batch))
-    issued = {k: v - before.get(k, 0) for k, v in R.COLLECTIVES.items() if v != before.get(k, 0)}
     out.update(ms=s * 1e3, collectives={"forward": sum(v for k, v in issued.items() if "/backward" not in k),
                                         "backward": sum(v for k, v in issued.items() if "/backward" in k)},
+               collective_kinds=issued, memory=mem,
                launches=[ops.int8_matmul.launches - launches0[0], flash_ops.flash_attention.launches - launches0[1]],
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0)
+               peak_gb=case_peak_gb(torch, [mem]))
     return out
 
 
@@ -3629,7 +3723,6 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.npu_matmul import ops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.sharding import MeshRules, serve_rules, train_rules
 
     out = {"rank": rank, "device": torch.cuda.current_device() if DEVICE == "cuda" else None}
     if "sweeps" in MESH_PARTS:
@@ -3640,7 +3733,7 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
         for case in MESH_MODELS:
             mesh = make_host_mesh(*case[2], device=DEVICE)
             t = time.perf_counter()
-            r = model_steps(torch, case, workdir, MeshRules(mesh, serve_rules(mesh)))
+            r = model_steps(torch, case, workdir, mesh)
             tensors[case[0]] = {k: r.pop(k) for k in ("prefill", "decode", "control", "decode_control") if k in r}
             out["models"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
                                       "seconds": time.perf_counter() - t}
@@ -3652,7 +3745,7 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
         for case in MESH_SERVE:
             mesh = make_host_mesh(*case[2], device=DEVICE)
             t = time.perf_counter()
-            r = serve_steps(torch, case, MeshRules(mesh, serve_rules(mesh)))
+            r = serve_steps(torch, case, mesh)
             tensors[case[0]] = {k: r.pop(k) for k in ("out", "control") if k in r}
             out["serve"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
                                      "seconds": time.perf_counter() - t}
@@ -3663,7 +3756,7 @@ def mesh_checks(torch, rank: int, world: int, workdir: Path) -> dict:
         for case in MESH_TRAIN:
             mesh = make_host_mesh(*case[2], device=DEVICE)
             t = time.perf_counter()
-            r = train_steps(torch, case, workdir, MeshRules(mesh, train_rules(mesh)))
+            r = train_steps(torch, case, workdir, mesh)
             out["train"][case[0]] = {**r, "coord": list(mesh.device_mesh.get_coordinate()),
                                      "seconds": time.perf_counter() - t}
     return out
@@ -4060,6 +4153,154 @@ def phase_mesh(torch, core, session, scenariogen, configs, steps, smi: str) -> l
     log(f"mesh: one-rank (e), (f) and (g) {one_s:.1f} s; ranks {s_ranks:.1f} s, start to end; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return ranks
+
+
+# ---------------------------------------------------------------------------
+# 13b. mesh dryrun: the dry run's rank against the mesh phase's ranks
+# ---------------------------------------------------------------------------
+
+
+def dryrun_reading(rec: dict, *, flash: bool) -> dict:
+    """What 13b reads of one ``dryrun.record``: the collectives
+    ``sharding.rules`` issued by kind; the rank's bytes by kind, collective
+    seconds and ``fits``; its peak (the flash trace's with ``flash``, where
+    the card's step launches the kernel, else the plain trace's),
+    arguments and trace seconds."""
+    mem = rec["memory"]
+    return {"kinds": rec["rules_collectives"], "by_kind": rec["collectives"]["by_kind"],
+            "collective_s": rec["collectives"]["est_seconds"], "fits": rec["fits"],
+            "peak_bytes": mem["flash_peak_bytes" if flash else "peak_bytes"], "argument_bytes": mem["argument_bytes"],
+            "trace": "flash" if flash else "plain", "seconds": rec["lower_s"] + rec["compile_s"]}
+
+
+def mesh_dryrun_cases() -> dict:
+    """MESH_PARTS' model cases at their cuts ((e)'s prefill and decode, (f),
+    (g)), each ``dryrun.record`` of its mesh: rank 0 of a fake process group
+    on meta, the step ``dryrun.rank_program`` builds, as the mesh phase's
+    ranks ran it: case -> :func:`dryrun_reading`."""
+    from repro_torch import arch as A
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optim import AdamWConfig
+
+    def mesh_name(sizes):
+        return "x".join(map(str, sizes))
+
+    out = {}
+    for name, depth, sizes, *_ in MESH_MODELS if "models" in MESH_PARTS else ():
+        arch = mesh_arch(A, configs, name, depth)
+        for s, flash in zip(arch.shapes, (True, False)):  # prefill, decode
+            out[f"models/{name}/{s.kind}"] = dryrun_reading(dryrun.record(arch, s.name, mesh=mesh_name(sizes)),
+                                                            flash=flash)
+    for case in MESH_SERVE if "serve" in MESH_PARTS else ():
+        arch = serve_arch(A, configs, case)
+        rec = dryrun.record(arch, arch.shapes[0].name, mesh=mesh_name(case[2]))
+        out[f"serve/{case[0]}"] = dryrun_reading(rec, flash=arch.family in ("dit", "flux", "vit"))
+    for case in MESH_TRAIN if "train" in MESH_PARTS else ():
+        arch = mesh_train_arch(A, configs, case)
+        rec = dryrun.record(arch, arch.shapes[0].name, mesh=mesh_name(case[2]), adamw=AdamWConfig(**MESH_TRAIN_ADAMW))
+        out[f"train/{case[0]}"] = dryrun_reading(rec, flash=False)
+    return out
+
+
+def mesh_dryrun_main(workdir: str, settings: dict) -> None:
+    """13b's traces in a spawned process on the host CPU, with no card
+    visible: takes the parent's ``settings`` and writes, as ``dryrun.json``
+    in ``workdir``, :func:`mesh_dryrun_cases` and this process's kernel
+    launches over them (int8_matmul, flash_attention).  It catches
+    nothing: a failed trace is the process's non-zero exit."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # before torch loads: the trace is on meta, and no kernel may launch
+    globals().update(settings)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.npu_matmul import ops
+
+    ops.int8_matmul.launches = flash_ops.flash_attention.launches = 0
+    cases = mesh_dryrun_cases()
+    launches = [ops.int8_matmul.launches, flash_ops.flash_attention.launches]
+    (Path(workdir) / "dryrun.json").write_text(json.dumps({"cases": cases, "launches": launches}))
+
+
+def rank_readings(ranks: list, key: str) -> list:
+    """Each rank's (collectives by kind, step memory) of 13b's case ``key``."""
+    part, name, *step = key.split("/")
+    rows = [r[part][name] for r in ranks]
+    if step:
+        return [(m["collective_kinds"][step[0]], m["memory"][step[0]]) for m in rows]
+    return [(m["collective_kinds"], m["memory"]) for m in rows]
+
+
+def check_mesh_dryrun(ranks: list, traced: dict, smi: str) -> dict:
+    """Every case of ``traced`` (:func:`mesh_dryrun_cases`) held against the
+    ranks' readings: collectives a step by kind equal on every rank; the
+    estimated peak within MESH_DRYRUN_PEAK_RTOL of each rank's step peak
+    (on the card, where the ranks measured it).
+    Returns, per case, the worst relative peak difference (None without
+    readings)."""
+    want = {f"models/{c[0]}/{s}" for c in MESH_MODELS for s in ("prefill", "decode")} if "models" in MESH_PARTS else set()
+    want |= {f"serve/{c[0]}" for c in MESH_SERVE} if "serve" in MESH_PARTS else set()
+    want |= {f"train/{c[0]}" for c in MESH_TRAIN} if "train" in MESH_PARTS else set()
+    check(set(traced) == want, f"mesh dryrun: traced {sorted(traced)}, the mesh phase ran {sorted(want)}")
+    report = {}
+    for key, t in traced.items():
+        readings = rank_readings(ranks, key)
+        kinds = {k: float(v) for k, v in t["kinds"].items() if v}
+        got = [{k: float(v) for k, v in k_r.items() if v} for k_r, _ in readings]
+        check(all(g == kinds for g in got), f"mesh dryrun: {key}: the rank trace issues {kinds} a step, the ranks "
+              f"on the card {got}")
+        check(sum(kinds.values()) > 0, f"mesh dryrun: {key}: no collective traced on a mesh of several ranks")
+        rels, steps_gb, inside = [], [], True
+        for _, mem in readings:
+            if not mem:
+                check(DEVICE != "cuda", f"mesh dryrun: {key}: a rank measured no step memory on the card")
+                continue
+            peak = mem["peak_bytes"] - (mem["resident_bytes"] - mem["argument_bytes"])
+            rels.append((t["peak_bytes"] - peak) / peak)
+            steps_gb.append(peak / 1e9)
+            inside &= abs(t["peak_bytes"] - peak) <= MESH_DRYRUN_PEAK_RTOL * peak
+        worst = max(rels, key=abs) if rels else None
+        report[key] = worst
+        log(f"mesh dryrun: {key} (rank 0 of a fake group on meta, {t['seconds']:.2f} s): collectives a step "
+            f"{kinds} equal on the {len(got)} ranks; bytes a step by kind " + ", ".join(
+                f"{k} {v:.4e}" for k, v in t["by_kind"].items())
+            + f", collective_s {t['collective_s']:.4e} (computed at analysis.LINK_BW for {smi}), fits "
+            f"{t['fits']}; peak "
+            f"({t['trace']} trace) {t['peak_bytes'] / 1e9:.4f} GB (arguments {t['argument_bytes'] / 1e9:.4f})"
+            + (f" against the ranks' step peaks {[round(g, 4) for g in steps_gb]} GB ({smi}): worst {worst:+.2%} "
+               f"(limit {MESH_DRYRUN_PEAK_RTOL:.0%})" if rels
+               else " (no card readings)"))
+        if rels:
+            check(inside, f"mesh dryrun: {key}: estimated peak {t['peak_bytes'] / 1e9:.4f} GB is {worst:+.2%} from "
+                  f"a rank's step peak, outside {MESH_DRYRUN_PEAK_RTOL:.0%}")
+    return report
+
+
+def phase_mesh_dryrun(ranks: list, smi: str) -> dict:
+    """13b: :func:`mesh_dryrun_main` in a spawned process, which must end
+    within MESH_DRYRUN_TIMEOUT with exit code 0 and no kernel launched,
+    then :func:`check_mesh_dryrun` against the mesh phase's ``ranks``."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        settings = {k: v for k, v in globals().items() if k.isupper() and k not in ("ONE_RANK", "MESH_REPORT")}
+        proc = multiprocessing.get_context("spawn").Process(target=mesh_dryrun_main, args=(workdir, settings))
+        t0 = time.perf_counter()
+        proc.start()
+        try:
+            proc.join(MESH_DRYRUN_TIMEOUT)
+            check(not proc.is_alive(), f"mesh dryrun: the traces still running after {MESH_DRYRUN_TIMEOUT} s")
+        finally:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(proc.exitcode == 0, f"mesh dryrun: the tracing process exited {proc.exitcode}")
+        done = json.loads((Path(workdir) / "dryrun.json").read_text())
+    traced = done["cases"]
+    log(f"mesh dryrun: {len(traced)} records in {time.perf_counter() - t0:.1f} s on the host CPU; kernel launches "
+        f"(int8_matmul, flash_attention) {tuple(done['launches'])} in the tracing process")
+    check(done["launches"] == [0, 0], "the mesh dryrun's tracing process launched a model kernel")
+    return check_mesh_dryrun(ranks, traced, smi)
 
 
 # The reference's numbers for every case of sim_cases(), computed by
@@ -4918,7 +5159,9 @@ def main() -> int:
     smi = phase("environment", lambda: phase_environment(torch, build, [ops.SOURCE, flash_ops.SOURCE]))
     if sys.argv[1:2] == ["--mesh-parts"]:  # a rehearsal: the mesh phase alone, these parts of it, no result line
         globals()["MESH_PARTS"] = tuple(sys.argv[2].split(","))
-        phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
+        ranks = phase("mesh", lambda: phase_mesh(torch, core, session, scenariogen, configs, steps, smi))
+        if {"models", "serve", "train"} & set(MESH_PARTS):
+            phase("mesh dryrun", lambda: phase_mesh_dryrun(ranks, smi))
         log(f"chip_smoke: the mesh phase's {MESH_PARTS} passed in {time.perf_counter() - t0:.1f} s ({walls})")
         return 0
     agg, gemm_rows, b7_frame = phase("kernels", lambda: phase_kernels(torch, A, configs, common, ops, ref))
@@ -4985,6 +5228,8 @@ def main() -> int:
         f"one-rank (e) and (f)), flash {mesh_rank_flash} on the ranks: {[r['models_launches'][1] for r in mesh_ranks]} "
         f"in (e), {[r['serve_launches'][1] for r in mesh_ranks]} in (f), 0 in (a)-(d) and (g)")
     check(ops.int8_matmul.launches == 0, "the mesh phase launched the int8 kernel")
+    # 13b traces in a child process with no card visible, which counts its own launches.
+    phase("mesh dryrun", lambda: phase_mesh_dryrun(mesh_ranks, smi))
     wall = time.perf_counter() - t0
 
     int8_launches = full_launches + vit_int8 + zoo_int8 + serving_int8

@@ -35,9 +35,20 @@ Counting rules, the reference's (``jaxpr_costs``) op for op:
 
 Memory is the counterpart of ``compiled.memory_analysis()``: the peak of
 live bytes over the trace, arguments, outputs and the temporaries alive at
-once, each storage counted once while a tensor holds it.  Collectives are
-the ``_c10d_functional`` ops, by kind with the reference's ring factors; a
-step on one card issues none.
+once, each storage counted once while a tensor holds it.
+
+A rank's trace (one rank of a fake process group, ``launch/dryrun``) counts
+that device's work: a DTensor is counted by its local tensor, and an op on
+DTensors is left to DTensor (the counter declines it), which runs it as
+local ops and ``_c10d_functional`` collectives that the counter then sees,
+so nothing is counted twice or at the global shape.  Collectives are the
+``_c10d_functional`` ops and the plain ``c10d`` ops that
+``torch.distributed``'s calls issue (``sharding.rules``' sums and
+gathers), by the reference's kinds, each at 0 FLOPs and its result's bytes
+on this device (an all-gather's gathered output, an all-reduce's buffer, a
+reduce-scatter's part), priced with the reference's ring factors; a step
+on one card issues none.  Their sites, as ``sites`` keeps the others', give
+``top_collectives``.
 
 Roofline terms, with the spec-sheet peaks of one NVIDIA H100 80GB HBM3 (SXM)
 at its 700 W limit:
@@ -64,6 +75,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..models.common import is_dtensor
+
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
 PEAK_FLOPS = 989e12  # dense bf16 FLOP/s, the card above
 HBM_BW = 3.35e12  # bytes/s
@@ -81,13 +94,21 @@ _ELEMENTWISE_FREE = {
     "new_empty", "new_empty_strided", "new_zeros", "new_ones", "new_full", "fill", "fill_", "zero_",
     "scalar_tensor",
 }
-# _c10d_functional op -> the reference's collective kind; ring-algorithm data
-# volume factors (x result bytes), per device.
+# _c10d_functional op -> the reference's collective kind (the result is the
+# op's output); ring-algorithm data volume factors (x result bytes), per device.
 _COLLECTIVE_KIND = {
     "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
     "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+}
+# c10d op (what dist.all_reduce, dist.all_gather, ... issue) -> its kind; the
+# result is the op's first argument, written in place.
+_C10D_KIND = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter", "alltoall_base_": "all-to-all",
 }
 _OP_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
               "all-to-all": 1.0, "collective-permute": 1.0}
@@ -119,13 +140,15 @@ class Trace:
     alias_bytes: int  # distinct storages of the outputs that are arguments' (updated in place)
     peak_bytes: int  # live bytes at their highest, arguments included
     collectives: dict  # as the reference's parse_collectives: by_kind, total_bytes, est_seconds, op_sites
+    collective_sites: dict  # (kind, result dtype, result shape) -> [bytes, count]
     seconds: float  # wall time of the traced call
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    """The tensors of a tree of tuples, lists and dicts."""
+    """The tensors of a tree of tuples, lists and dicts, a DTensor as its
+    local tensor (what this device holds)."""
     if isinstance(tree, torch.Tensor):
-        return [tree]
+        return [tree._local_tensor if is_dtensor(tree) else tree]
     if isinstance(tree, (tuple, list)):
         return [t for x in tree for t in _tensors(x)]
     if isinstance(tree, dict):
@@ -166,15 +189,20 @@ def _matmul_flops(name: str, args) -> float:
 @functools.cache
 def _rule(func) -> tuple[str, str, str]:
     """(kind, name, site name) of an op.  Kinds: "view" (aliases an input
-    and writes nothing), "collective" (a ``_c10d_functional`` op),
+    and writes nothing; so do ``wait_tensor`` and ``_wrap_tensor_autograd``,
+    which hand back a collective's result),
+    "collective" (a ``_c10d_functional`` op: its output is the result),
+    "c10d" (a ``c10d`` collective: its first argument is the result),
     "functional" (returns fresh tensors and writes none of its arguments),
     "other" (writes in place)."""
     packet = func.overloadpacket
-    name, schema = packet.__name__, func._schema
-    if func.is_view or name == "_unsafe_view":
+    name, schema, qualified = packet.__name__, func._schema, packet._qualified_op_name
+    if func.is_view or name in ("_unsafe_view", "wait_tensor", "_wrap_tensor_autograd"):
         kind = "view"
-    elif packet._qualified_op_name.startswith("_c10d_functional::") and name in _COLLECTIVE_KIND:
+    elif qualified.startswith("_c10d_functional::") and name in _COLLECTIVE_KIND:
         kind = "collective"
+    elif qualified.startswith("c10d::") and name in _C10D_KIND:
+        kind = "c10d"
     elif schema.is_mutable or any(r.alias_info is not None for r in schema.returns):
         kind = "other"
     else:
@@ -226,7 +254,7 @@ class CostCounter(TorchDispatchMode):
         self.dot_flops = 0.0
         self.sites: dict = {}
         self.collectives: dict[str, float] = {}
-        self.collective_sites = 0
+        self.collective_sites: dict = {}  # (kind, result dtype, result shape) -> [bytes, count]
         self.live = 0
         self.peak = 0
         self._storages = WeakIdKeyDictionary()  # storage -> bytes, while it lives
@@ -275,10 +303,18 @@ class CostCounter(TorchDispatchMode):
         return _rebuild(template)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return func(*args, **kwargs)  # DTensor working out a result's layout: no work on the device
+        if any(t is not torch.Tensor and t is not torch.nn.Parameter for t in types):
+            # A DTensor (or a collective's async result) runs it as plain ops
+            # and collectives, counted as they come.
+            return NotImplemented
         kind, name, site = _rule(func)
         kwargs = kwargs or {}
         if kind == "view":  # aliases its input: writes nothing
             return func(*args, **kwargs)
+        if kind in ("collective", "c10d"):
+            return self._collective(func, args, kwargs, kind, name)
         inputs = _tensors((args, kwargs))
         if kind == "functional" and all(t.device.type == "meta" for t in inputs):
             out = self._cached(func, args, kwargs)
@@ -299,10 +335,6 @@ class CostCounter(TorchDispatchMode):
                 self._unpadded[outs[0].untyped_storage()] = tuple(args[0].shape)
         else:
             flops = float(sum(t.numel() for t in outs))
-        if kind == "collective":
-            coll = _COLLECTIVE_KIND[name]
-            self.collectives[coll] = self.collectives.get(coll, 0.0) + out_bytes
-            self.collective_sites += 1
         self.costs.flops += flops
         self.costs.bytes += out_bytes
         self.dot_flops += dot
@@ -314,10 +346,27 @@ class CostCounter(TorchDispatchMode):
             self.hold(t)
         return out
 
+    def _collective(self, func, args, kwargs, kind: str, name: str):
+        """A collective: 0 FLOPs, its result's bytes on this device, by the
+        reference's kind and at its site; a fresh output is live bytes."""
+        out = func(*args, **kwargs)
+        result = _tensors(out) if kind == "collective" else _tensors(args[0])
+        n = sum(_bytes_of(t) for t in result)
+        coll = (_COLLECTIVE_KIND if kind == "collective" else _C10D_KIND)[name]
+        self.collectives[coll] = self.collectives.get(coll, 0.0) + n
+        self.costs.bytes += n
+        site = (coll, str(result[0].dtype).removeprefix("torch."), tuple(result[0].shape))
+        rec = self.collective_sites.setdefault(site, [0.0, 0])
+        rec[0] += n
+        rec[1] += 1
+        for t in result:
+            self.hold(t)
+        return out
+
     def collective_summary(self) -> dict[str, Any]:
         seconds = sum(_OP_FACTOR[kind] * b / LINK_BW for kind, b in self.collectives.items())
         return {"by_kind": dict(self.collectives), "total_bytes": sum(self.collectives.values()),
-                "est_seconds": seconds, "op_sites": self.collective_sites}
+                "est_seconds": seconds, "op_sites": sum(c for _, c in self.collective_sites.values())}
 
 
 def trace(fn, *args) -> Trace:
@@ -338,7 +387,7 @@ def trace(fn, *args) -> Trace:
         (alias if st in arg_storages else new)[id(st)] = st.nbytes()
     costs = Costs(counter.costs.flops, counter.costs.bytes + sum(_bytes_of(t) for t in arg_tensors))
     return Trace(costs, counter.dot_flops, counter.sites, argument_bytes, sum(new.values()), sum(alias.values()),
-                 counter.peak, counter.collective_summary(), seconds)
+                 counter.peak, counter.collective_summary(), counter.collective_sites, seconds)
 
 
 def traced_costs(fn, *args) -> Costs:
@@ -349,6 +398,16 @@ def site_rows(sites: dict, k: int = 15) -> list[dict]:
     """The ``k`` (aten op, output shape) sites with the most bytes."""
     rows = [{"prim": name, "shape": list(shape), "bytes": b, "flops": f, "count": c}
             for (name, shape), (b, f, c) in sites.items()]
+    rows.sort(key=lambda r: -r["bytes"])
+    return rows[:k]
+
+
+def collective_rows(sites: dict, k: int = 12) -> list[dict]:
+    """The ``k`` collective sites (kind, result dtype and shape) with the
+    most bytes, as the reference's ``top_collective_sites`` rows: ``type``
+    the result's, ``trips`` the times it was issued."""
+    rows = [{"kind": kind, "type": f"{dtype}{list(shape)}", "bytes": b, "trips": c}
+            for (kind, dtype, shape), (b, c) in sites.items()]
     rows.sort(key=lambda r: -r["bytes"])
     return rows[:k]
 

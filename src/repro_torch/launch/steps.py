@@ -83,19 +83,21 @@ class CellProgram:
         values.  Under the cell's ``rules`` each rank draws a leaf
         whole, keeps its slice as a DTensor and frees the rest before the
         next leaf (empty and ones leaves are made as slices): the values are
-        the unsharded ones."""
+        the unsharded ones.  On ``meta`` under rules over a process group,
+        each leaf is a ``meta`` DTensor of this rank's slice (a dry run's
+        rank)."""
         device = resolve_device(device)
         specs, rules = self.arg_specs[i], self.rules
-        if device.type == "meta":
-            return abstract_tree(specs)
-        gen = torch.Generator(device=device).manual_seed(seed + 7919 * i)
+        meta = device.type == "meta"
+        gen = None if meta else torch.Generator(device=device).manual_seed(seed + 7919 * i)
         if rules is None or rules.mesh.device_mesh is None:
-            return init_tree(gen, specs, device=device)
+            return abstract_tree(specs) if meta else init_tree(gen, specs, device=device)
 
         def leaf(s: ParamSpec):
             if s.init in ("zeros", "ones"):
                 return rules.constant(s, device)
-            return rules.place(init_param(gen, s, device), s)
+            whole = torch.empty(s.shape, dtype=s.dtype, device=device) if meta else init_param(gen, s, device)
+            return rules.place(whole, s)
 
         return tree_map(leaf, specs)
 

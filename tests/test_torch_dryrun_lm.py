@@ -21,7 +21,7 @@ from test_torch_ref import REPO
 from repro_torch import arch as A
 from repro_torch import configs
 from repro_torch.device import resolve_device
-from repro_torch.launch import dryrun, steps
+from repro_torch.launch import steps
 from repro_torch.models import lm
 
 FAMILIES = ("lm",)
@@ -84,12 +84,6 @@ def test_cli_writes_a_record(tmp_path):
             "alias_bytes"} <= rec["memory"].keys()
     assert rec["memory"]["alias_bytes"] > 0  # the cache, written in place
     assert not {"xla_cost_flops", "hlo_bytes", "kv_gather_s_analytic"} & rec.keys()
-
-
-@pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"], ["--submesh", "4x4"]])
-def test_multi_device_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k", *argv])
 
 
 def test_import_has_no_side_effect():

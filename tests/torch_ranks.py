@@ -631,3 +631,28 @@ def _dotted(tree, prefix: str = "") -> list:
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _dotted(tree[k], f"{prefix}.{k}")]
     return [prefix]
+
+
+def ruled_collectives(cases: dict) -> dict:
+    """Each case ``key -> (arch, ShapeSpec fields, make_host_mesh args)``:
+    the SMOKE arch cut to that one shape, its step under the dry run's rule
+    table (``dryrun.rank_program``) on this rank's CPU, on the seed's
+    arguments: the collectives ``sharding.rules`` issued, by kind."""
+    import dataclasses
+
+    from repro_torch import arch as A
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules as R
+
+    out = {}
+    for key, (name, fields, mesh_args) in cases.items():
+        spec = A.ShapeSpec(*fields)
+        arch = dataclasses.replace(configs.get(name, smoke=True), shapes=(spec,))
+        prog = dryrun.rank_program(arch, spec.name, make_host_mesh(**mesh_args, device="cpu"))
+        args = prog.init_args(0, "cpu")
+        before = dict(R.COLLECTIVES)
+        prog(*args)
+        out[key] = {k: v - before.get(k, 0) for k, v in R.COLLECTIVES.items() if v != before.get(k, 0)}
+    return out
